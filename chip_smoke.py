@@ -13,19 +13,29 @@ order it:
 2. holds each kernel to exact equality with its plain PyTorch version on
    the same CUDA tensors, on random inputs (the shapes of
    ``tests/test_kernels.py`` with 1 and 3 parts, both ``recolor_degrees``
-   settings, one case without ghosts);
-3. drives the main path: a cold ``color_distributed(..., backend="cuda")``
-   on the graph, then three warm requests through one ``ColoringPlan``,
-   each with a random 10% ``color_mask`` and ``colors0`` set to the
-   previous coloring with the masked vertices cleared.  Every result must
-   be a proper coloring and equal, field by field, to the ``reference``
-   backend on the card.  The kernels' launch counts are zeroed just
-   before this run and read just after it; each must be > 0.  They are
-   also read around each request, and printed per request;
+   and ``partial_d2`` settings, cases without ghosts and with one ghost
+   slot that holds no real ghost, ragged row counts);
+3. generates the graph once and drives every path of the port on it, each
+   with the kernels' launch counts set to 0 just before it and read just
+   after it (and around each request), each kernel > 0 on the paths that
+   use it; every result must be proper for its problem and equal, field
+   by field, to the ``reference`` backend on the card:
+
+   - d1 ``cuda``: a cold ``color_distributed``, then three warm requests
+     through one ``ColoringPlan``, each with a random 10% ``color_mask``
+     and ``colors0`` set to the previous coloring with the masked
+     vertices cleared; a cold and a warm request profiled;
+   - d1 ``cuda_fused``: the same four requests; a warm one profiled;
+   - on the same graph partitioned with a second ghost layer, ``d2`` and
+     ``pd2`` on ``cuda`` and ``cuda_fused``, a cold and a warm 10% request
+     each (a ``cuda_fused`` d2 warm request profiled), and ``d1_2gl``
+     cold on both; the peak device memory after each problem;
 4. times each kernel and its plain version (CUDA events, median) on the
-   inputs of the main path's first launch, holds them equal, computes
-   each kernel's bound from the bytes these inputs need it to move, and
-   prints one ``{"kernels": [...]}`` line;
+   inputs of its first main-path launch, right after the path that makes
+   them (``fused_round`` on d1's and, for ``PERF.md``, on d2's), holds
+   them equal, computes each kernel's bound from the bytes these inputs
+   need it to move, and prints one ``{"kernels": [...]}`` line with each
+   kernel's launches summed over the paths;
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -44,6 +54,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+VALIDATORS = {"d1": "is_proper_d1", "d1_2gl": "is_proper_d1",
+              "d2": "is_proper_d2", "pd2": "is_proper_pd2"}
 
 
 def log(msg: str) -> None:
@@ -57,15 +69,30 @@ def card_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_inputs(n, w, g, n_colors, seed, parts, device):
-    """Stacked random kernel inputs on ``device``, as the card tests draw them."""
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels.conflict import conflict_detect
+    from repro_torch.kernels.d2_forbidden import d2_assign
+    from repro_torch.kernels.fused_round import fused_round
+    from repro_torch.kernels.vb_bit import vb_bit_assign
+
+    return {k.__name__: k for k in (vb_bit_assign, conflict_detect, d2_assign,
+                                    fused_round)}
+
+
+def to_device(arrays, device):
     import torch
 
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def random_inputs(n, w, g, n_colors, seed, parts, device):
+    """Stacked random kernel inputs on ``device``, as the card tests draw them."""
     from repro_torch.kernels._testing import random_stacked
 
     _, stacked = random_stacked(n, w, g, n_colors, seed, parts)
     keys = ("adj", "tab", "base", "active", "deg", "gid", "bd")
-    return {k: torch.from_numpy(a).to(device) for k, a in zip(keys, stacked)}
+    return dict(zip(keys, to_device(stacked, device)))
 
 
 def check_equal(name, got, want) -> int:
@@ -83,18 +110,24 @@ def check_equal(name, got, want) -> int:
     return err
 
 
-def kernel_vs_plain_grid(device) -> int:
-    from repro_torch.kernels._testing import SHAPES
+def kernel_vs_plain_grid(device) -> dict[str, int]:
+    """Random cases of every kernel against its plain version; case counts."""
+    from repro_torch.kernels._testing import (
+        D2_SHAPES, ROUND_SHAPES, SHAPES, random_ext, random_round,
+    )
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
+    from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
+    from repro_torch.kernels.fused_round import fused_round, fused_round_ref
     from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
 
-    cases = 0
+    cases = dict.fromkeys(wrappers(), 0)
     for n, w, g in SHAPES + [(300, 5, 0)]:
         for parts in (1, 3):
             x = random_inputs(n, w, g, 60, n + parts, parts, device)
             args = (x["adj"], x["tab"][:, :n], x["base"], x["active"], x["tab"])
             check_equal(f"vb_bit {n, w, g, parts}", vb_bit_assign(*args),
                         vb_bit_assign_ref(*args))
+            cases["vb_bit_assign"] += 1
             x = random_inputs(n, w, g, 6, n, parts, device)
             for rd in (True, False):
                 args = (x["adj"], x["tab"][:, :n], x["deg"][:, :n], x["gid"][:, :n],
@@ -102,8 +135,29 @@ def kernel_vs_plain_grid(device) -> int:
                 check_equal(f"conflict {n, w, g, parts, rd}",
                             conflict_detect(*args, recolor_degrees=rd),
                             conflict_detect_ref(*args, recolor_degrees=rd))
-                cases += 1
-            cases += 1
+                cases["conflict_detect"] += 1
+    for n, w, g in D2_SHAPES + [(515, 6, 200)]:
+        for parts in (1, 3):
+            x = random_inputs(n, w, g, 20, n * 7, parts, device)
+            ext, = to_device([random_ext(n, w, g, n, parts)], device)
+            for partial_d2 in (False, True):
+                args = (x["adj"], ext, x["tab"], x["base"], x["active"])
+                check_equal(f"d2_assign {n, w, g, parts, partial_d2}",
+                            d2_assign(*args, partial_d2=partial_d2),
+                            d2_assign_ref(*args, partial_d2=partial_d2))
+                cases["d2_assign"] += 1
+    for n, w, g, real in ROUND_SHAPES:
+        for parts in (1, 3):
+            adj, th, colors, ghost, deg, gid, bd = to_device(
+                random_round(n, w, g, n + parts, parts, real_ghosts=real), device)
+            for problem in ("d1", "d2", "pd2"):
+                for rd in (True, False):
+                    args = (adj, colors, ghost, deg, gid, bd,
+                            None if problem == "d1" else th)
+                    kw = dict(problem=problem, recolor_degrees=rd)
+                    check_equal(f"fused_round {n, w, g, real, parts, problem, rd}",
+                                fused_round(*args, **kw), fused_round_ref(*args, **kw))
+                    cases["fused_round"] += 1
     return cases
 
 
@@ -162,16 +216,26 @@ def profile_request(label, request) -> None:
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def distinct_entries(adj, lanes, n_tab) -> int:
-    """Distinct table entries ``adj`` points at on the ``lanes`` mask,
-    counted per part (a gather that reads each entry once moves this many)."""
+def touched_entries(blocks, n_tab) -> int:
+    """Distinct table entries that the ``(index block, lane mask)`` pairs
+    point at, counted per part and summed (a gather that reads each entry
+    once moves this many).  Parts are marked one at a time, so the int64
+    indices of one part's block are the largest temporary."""
     import torch
 
-    p = adj.shape[0]
-    idx = torch.where(lanes, adj, n_tab).to(torch.int64).view(p, -1)
-    touched = torch.zeros((p, n_tab + 1), dtype=torch.bool, device=adj.device)
-    touched.scatter_(1, idx, True)
-    return int(touched[:, :n_tab].sum())
+    p = blocks[0][0].shape[0]
+    total = 0
+    for q in range(p):
+        seen = torch.zeros(n_tab + 1, dtype=torch.bool, device=blocks[0][0].device)
+        for idx, lanes in blocks:
+            seen[torch.where(lanes[q], idx[q], n_tab).to(torch.int64).view(-1)] = True
+        total += int(seen[:n_tab].sum())
+    return total
+
+
+def distinct_entries(adj, lanes, n_tab) -> int:
+    """Distinct table entries ``adj`` points at on the ``lanes`` mask."""
+    return touched_entries([(adj, lanes)], n_tab)
 
 
 def vb_bit_bytes(adj, colors, active, tab) -> int:
@@ -187,6 +251,26 @@ def vb_bit_bytes(adj, colors, active, tab) -> int:
     todo = active & (colors == 0)
     table = p * n + distinct_entries(adj, todo[..., None] & (adj >= n), tab.shape[-1])
     return p * n * (4 + 1) + p * n * 8 + int(todo.sum()) * w * 4 + table * 4
+
+
+def d2_assign_bytes(adj, two_hop, colors, active, tab, partial_d2) -> int:
+    """Bytes ``d2_assign`` must move on these inputs, each read once.
+
+    As :func:`vb_bit_bytes`, and a row to color also reads the extended
+    adjacency row of each neighbor (each such row counted once per part);
+    the table entries it gathers are the two-hop ones, and the one-hop ones
+    unless ``partial_d2``.
+    """
+    p, n, w = adj.shape
+    n_tab = tab.shape[-1]
+    todo = active & (colors == 0)
+    blocks = [(two_hop, todo[..., None] & (two_hop >= n))]
+    if not partial_d2:
+        blocks.append((adj, todo[..., None] & (adj >= n)))
+    table = p * n + touched_entries(blocks, n_tab)
+    ext_rows = distinct_entries(adj, todo[..., None].expand_as(adj), n_tab)
+    return (p * n * (4 + 1) + p * n * 8 + int(todo.sum()) * w * 4
+            + ext_rows * w * 4 + table * 4)
 
 
 def conflict_bytes(adj, colors, ctab, v_rows, n_loc, recolor_degrees) -> int:
@@ -215,6 +299,73 @@ def conflict_bytes(adj, colors, ctab, v_rows, n_loc, recolor_degrees) -> int:
             + int(v_rows.sum()))
 
 
+def fused_round_bytes(st, colors, ghost, problem, recolor_degrees) -> tuple[int, int]:
+    """Bytes ``fused_round`` must move on these inputs, each read once, and
+    the fixed-point iterations the plain version takes on them.
+
+    The detection sweep once, as :func:`conflict_bytes` counts it over each
+    block it sweeps, without the per-lane output: every row's color, every
+    lane's index, ghost colors on colored rows' ghost lanes, gids and
+    degrees where colors collide, ``is_boundary`` on rows that lose, and
+    the outputs (colors, ``lose_v``, ``lose_ghost``, counts).  Then, in
+    each fixed-point iteration, the lanes of the active rows of running
+    parts and the table entries they name.
+    """
+    import torch
+
+    from repro_torch.core.backend import ReferenceBackend
+    from repro_torch.core.distributed import _detect_part, _table
+    from repro_torch.core.local import (
+        MAX_ITERS_D1, MAX_ITERS_D2, _speculate_round, gather_rows, iterate_parts,
+    )
+
+    two_hop = st["two_hop_cidx"] if problem != "d1" else None
+    blocks = ([st["adj_cidx"]] if problem != "pd2" else []) + (
+        [two_hop] if two_hop is not None else [])
+    p, n = colors.shape
+    g = ghost.shape[-1]
+    n_tab = n + g + 1
+    ctab = _table(colors, ghost)
+    words = 2 if recolor_degrees else 1
+    nbytes = p * n * 4 + p * n + p * g + p * 4 + p * n * 4
+    colored_lanes, collide_lanes = [], []
+    own_collide = torch.zeros_like(colors, dtype=torch.bool)
+    v_rows = torch.zeros_like(own_collide)
+    ones = torch.ones_like(own_collide)
+    for blk in blocks:
+        nbytes += blk.numel() * 4
+        is_ghost = (blk >= n) & (blk < n + g)
+        colored = is_ghost & (colors[..., None] > 0)
+        collide = colored & (gather_rows(ctab, blk) == colors[..., None])
+        colored_lanes.append((blk, colored))
+        collide_lanes.append((blk, collide))
+        own_collide |= collide.any(-1)
+        v_rows |= ReferenceBackend().detect(
+            blk, colors, ctab, st["deg_tab"], st["gid_tab"], ones,
+            recolor_degrees=recolor_degrees)[0]
+    nbytes += (touched_entries(colored_lanes, n_tab) * 4
+               + touched_entries(collide_lanes, n_tab) * 4 * words
+               + int(own_collide.sum()) * 4 * words + int(v_rows.sum()))
+
+    lose, _, _ = _detect_part(st, colors, ghost, problem=problem,
+                              recolor_degrees=recolor_degrees)
+    per_iter = []
+
+    def step(tab, base):
+        # iterate_parts tests running parts on this very table.
+        rows = lose & (lose & (tab[:, :n] == 0)).any(dim=1)[:, None]
+        per_iter.append(sum(int(rows.sum()) * blk.shape[-1] * 4 for blk in blocks)
+                        + touched_entries([(blk, rows[..., None].expand_as(blk))
+                                           for blk in blocks], n_tab) * 4)
+        return _speculate_round(tab, base, st["adj_cidx"], lose, st["deg_tab"],
+                                st["gid_tab"], two_hop, problem == "pd2",
+                                recolor_degrees)
+
+    iterate_parts(step, _table(torch.where(lose, 0, colors), ghost), lose,
+                  max_iters=MAX_ITERS_D1 if problem == "d1" else MAX_ITERS_D2)
+    return nbytes + sum(per_iter), len(per_iter)
+
+
 def same_result(a, b) -> bool:
     return (np.array_equal(a.colors, b.colors) and a.rounds == b.rounds
             and a.converged == b.converged
@@ -222,6 +373,101 @@ def same_result(a, b) -> bool:
             and a.n_colors == b.n_colors
             and np.array_equal(a.comm_bytes_by_round, b.comm_bytes_by_round)
             and np.array_equal(a.comm_bytes_by_level, b.comm_bytes_by_level))
+
+
+class Launches:
+    """Launch counts of the kernel wrappers, read around each request and
+    over each path; a path's counts are zeroed just before it."""
+
+    def __init__(self):
+        self.kernels = wrappers()
+        self.paths: dict[str, dict[str, int]] = {}
+
+    def read(self) -> dict[str, int]:
+        return {name: k.launches for name, k in self.kernels.items()}
+
+    def start(self) -> None:
+        for k in self.kernels.values():
+            k.launches = 0
+
+    def timed(self, label, request):
+        """Run one request to its end on the card; returns (result, seconds)
+        and logs its launches."""
+        import torch
+
+        before = self.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = request()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = {k: v - before[k] for k, v in self.read().items() if v != before[k]}
+        log(f"[main] {label}: {seconds:.4f} s, rounds={out.rounds} "
+            f"conflicts={out.total_conflicts} colors={out.n_colors}, launches {n}")
+        return out, seconds
+
+    def end(self, path: str, uses) -> None:
+        counts = self.read()
+        self.paths[path] = counts
+        log(f"[main] launches on the {path} path: {counts}")
+        for name in uses:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
+
+    def total(self, name: str) -> int:
+        return sum(c[name] for c in self.paths.values())
+
+
+def check_results(label, g, problem, results, refs) -> None:
+    """Every result proper for its problem and equal to the reference's."""
+    from repro_torch.core import validate
+
+    proper = getattr(validate, VALIDATORS[problem])
+    for i, (r, ref) in enumerate(zip(results, refs, strict=True)):
+        if not (r.converged and proper(g, r.colors)):
+            raise AssertionError(f"{label} request {i}: coloring is not proper")
+        if not same_result(r, ref):
+            raise AssertionError(f"{label} request {i}: differs from the reference backend")
+    log(f"[main] {label}: {len(results)} requests proper ({VALIDATORS[problem]}) and "
+        "equal to the reference backend in colors, rounds, converged, "
+        "total_conflicts, n_colors and comm bytes by round and by level")
+
+
+def time_kernel(label, kern, plain, kargs, kw, nbytes, reps) -> dict:
+    """Hold a kernel equal to its plain version on main-path inputs, time
+    both, log them against the bytes bound, and return the measured keys of
+    its ``{"kernels": [...]}`` entry."""
+    err = check_equal(f"{label} main-path inputs", kern(*kargs, **kw), plain(*kargs, **kw))
+    ms = time_ms(lambda: kern(*kargs, **kw), reps)
+    plain_ms = time_ms(lambda: plain(*kargs, **kw), max(reps // 4, 3))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({nbytes} B over 3.35 TB/s), "
+        f"{bound_ms / ms:.1%} of the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def kernel_entry(name, src, replaces, measured) -> dict:
+    """One kernel's ``{"kernels": [...]}`` entry; its ``launches`` are filled
+    in once every path has run."""
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": None, **measured, "bound_by": "bytes", "library_ms": None}
+
+
+def first_round_inputs(plan, problem, device):
+    """The inputs of a cold request's first round: the initial coloring on
+    the ``cuda`` backend, then the first exchange.  Returns (colors, ghost)."""
+    import torch
+
+    from repro_torch.core.backend import CudaBackend
+    from repro_torch.core.distributed import _recolor_part
+
+    c0, g0, a0, _ = plan.request_inputs()
+    c0, g0, a0 = to_device((c0, g0, a0), device)
+    colors = _recolor_part(plan._st, c0, g0, a0, torch.zeros_like(g0, dtype=torch.bool),
+                           problem=problem, recolor_degrees=True, backend=CudaBackend())
+    ghost, _, _ = plan._strategy.stacked(plan._st, colors, ())
+    return colors, ghost
 
 
 def main(argv=None) -> int:
@@ -245,18 +491,17 @@ def run(device, args) -> int:
     """All phases on ``device``; raises on the first failure."""
     import torch
 
-    from repro_torch.core.backend import CudaBackend
-    from repro_torch.core.distributed import (
-        _recolor_part, _table, color_distributed,
-    )
+    from repro_torch.core.distributed import _table, color_distributed
     from repro_torch.core.plan import ColoringPlan
-    from repro_torch.core.validate import is_proper_d1
     from repro_torch.graph.partition import partition_graph
     from repro_torch.kernels import build
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
+    from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
+    from repro_torch.kernels.fused_round import fused_round, fused_round_ref
     from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
     from repro_torch.launch.color import make_graph
 
+    t_start = time.perf_counter()
     ident = card_identity()
     log(f"[card] {ident}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -268,15 +513,15 @@ def run(device, args) -> int:
     log(f"[build] {len(build.SOURCES)} kernels in {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
         for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     # -- 2. kernel vs plain on random inputs ---------------------------------
     cases = kernel_vs_plain_grid(device)
     torch.cuda.synchronize()
-    log(f"[kernels] {cases} random cases: both kernels equal their plain versions")
+    log(f"[kernels] random cases {cases}: every kernel equals its plain version")
 
-    # -- 3. main path --------------------------------------------------------
+    # -- 3. the paths ------------------------------------------------------------
     t0 = time.perf_counter()
     g = make_graph(args.graph)
     t1 = time.perf_counter()
@@ -289,122 +534,188 @@ def run(device, args) -> int:
 
     rng = np.random.default_rng(args.seed)
     masks = [rng.random(g.n) < 0.1 for _ in range(3)]
-    kernels = (vb_bit_assign, conflict_detect)
-    counts = [(k.__name__, k) for k in kernels]
-    per_request = []        # launches of each request, read around it
+    ledger = Launches()
 
-    def timed(label, request):
-        before = {name: k.launches for name, k in counts}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = request()
-        torch.cuda.synchronize()
-        per_request.append((label, {name: k.launches - before[name]
-                                    for name, k in counts}))
-        return out, time.perf_counter() - t0
-
-    for k in kernels:
-        k.launches = 0
-    cold, cold_s = timed("cold color_distributed",
-                         lambda: color_distributed(pg, backend="cuda", device=device))
+    # d1, cuda: cold color_distributed, then three warm requests in one plan.
+    ledger.start()
+    cold, cold_s = ledger.timed("d1 cuda cold color_distributed",
+                                lambda: color_distributed(pg, backend="cuda", device=device))
     t0 = time.perf_counter()
     plan = ColoringPlan(pg, backend="cuda", device=device)
     torch.cuda.synchronize()
-    plan_s = time.perf_counter() - t0
+    log(f"[main] d1 plan upload {time.perf_counter() - t0:.3f} s")
     # The plan's own first request is cold too; it must repeat the entry
     # point's result exactly (the runtime is deterministic).
-    again, _ = timed("cold plan.run", plan.run)
+    again, _ = ledger.timed("d1 cuda cold plan.run", plan.run)
     if not same_result(again, cold):
         raise AssertionError("a second cold request differs from the first")
-    results, warm_s, colors0 = [cold], [], []
+    results, colors0 = [cold], []
     for i, m in enumerate(masks):
         c0 = results[-1].colors.copy()
         c0[m] = 0
         colors0.append(c0)
-        r, s = timed(f"warm {i + 1}", lambda: plan.run(color_mask=m, colors0=c0))
+        r, _ = ledger.timed(f"d1 cuda warm {i + 1}",
+                            lambda: plan.run(color_mask=m, colors0=c0))
         results.append(r)
-        warm_s.append(s)
-    launches = {name: k.launches for name, k in counts}
-    log(f"[main] cold color_distributed {cold_s:.3f} s (rounds={cold.rounds} "
-        f"conflicts={cold.total_conflicts} colors={cold.n_colors}); plan upload "
-        f"{plan_s:.3f} s; warm requests {[round(s, 4) for s in warm_s]} s "
-        f"(rounds={[r.rounds for r in results[1:]]})")
-    for label, n in per_request:
-        log(f"[main] launches in {label}: {n}")
-    log(f"[main] launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    ledger.end("d1 cuda", ("vb_bit_assign", "conflict_detect"))
 
-    for i, r in enumerate(results):
-        if not (r.converged and is_proper_d1(g, r.colors)):
-            raise AssertionError(f"request {i}: coloring is not proper")
     ref_plan = ColoringPlan(pg, backend="reference", device=device)
     t0 = time.perf_counter()
     refs = [ref_plan.run()]
     refs += [ref_plan.run(color_mask=m, colors0=c0) for m, c0 in zip(masks, colors0)]
     torch.cuda.synchronize()
-    log(f"[main] reference backend on the card: 4 requests in "
+    log(f"[main] d1 reference backend on the card: 4 requests in "
         f"{time.perf_counter() - t0:.3f} s")
-    for i, (r, ref) in enumerate(zip(results, refs)):
-        if not same_result(r, ref):
-            raise AssertionError(f"request {i}: cuda backend differs from reference")
-    log("[main] 4 requests proper and equal to the reference backend in colors, "
-        "rounds, converged, total_conflicts, n_colors and comm bytes")
-    profile_request("cold", plan.run)
-    profile_request("warm", lambda: plan.run(color_mask=masks[0], colors0=colors0[0]))
+    del ref_plan
+    check_results("d1 cuda", g, "d1", results, refs)
+    profile_request("d1 cuda cold", plan.run)
+    profile_request("d1 cuda warm",
+                    lambda: plan.run(color_mask=masks[0], colors0=colors0[0]))
 
-    # -- 4. kernel timings at the main path's shapes --------------------------
-    st = plan._st
-    n = plan.n_local
+    # Kernel timings at the d1 shapes: the inputs of the first launches of
+    # the cold run (vb_bit: every active row uncolored; conflict and
+    # fused_round: the first round, after the initial coloring and the
+    # first exchange).
+    st, n = plan._st, plan.n_local
     c0, g0, a0, _ = plan.request_inputs()
-    c0 = torch.from_numpy(c0).to(device)
-    g0 = torch.from_numpy(g0).to(device)
-    a0 = torch.from_numpy(a0).to(device)
-    # vb_bit: the first launch of the cold run (every active row uncolored).
+    c0, g0, a0 = to_device((c0, g0, a0), device)
     tab = _table(c0, g0)
-    base = torch.ones_like(c0)
-    vb_args = (st["adj_cidx"], tab[:, :n], base, a0, tab)
-    # conflict: the first detect of the cold run, after the initial
-    # coloring and the first exchange.
-    colors = _recolor_part(st, c0, g0, a0, torch.zeros_like(g0, dtype=torch.bool),
-                           problem="d1", recolor_degrees=True, backend=CudaBackend())
-    ghost, _, _ = plan._strategy.stacked(st, colors, ())
+    vb_args = (st["adj_cidx"], tab[:, :n], torch.ones_like(c0), a0, tab)
+    colors, ghost = first_round_inputs(plan, "d1", device)
     ctab = _table(colors, ghost)
     cf_args = (st["adj_cidx"], colors, st["deg_tab"][:, :n], st["gid_tab"][:, :n],
                st["is_boundary"], ctab, st["deg_tab"], st["gid_tab"], n)
-
-    vb_bytes = vb_bit_bytes(st["adj_cidx"], tab[:, :n], a0, tab)
     # The rows that lose on some lane: lose_v before the boundary mask.
     v_rows, _, _ = conflict_detect_ref(*cf_args[:4], torch.ones_like(st["is_boundary"]),
                                        *cf_args[5:], recolor_degrees=True)
-    cf_bytes = conflict_bytes(st["adj_cidx"], colors, ctab, v_rows, n, True)
+    entries = {
+        "vb_bit_assign": kernel_entry(
+            "vb_bit_assign", "src/repro_torch/csrc/vb_bit.cu",
+            "src/repro/kernels/vb_bit.py:84",
+            time_kernel("vb_bit_assign", vb_bit_assign, vb_bit_assign_ref, vb_args, {},
+                        vb_bit_bytes(st["adj_cidx"], tab[:, :n], a0, tab), args.reps)),
+        "conflict_detect": kernel_entry(
+            "conflict_detect", "src/repro_torch/csrc/conflict.cu",
+            "src/repro/kernels/conflict.py:107",
+            time_kernel("conflict_detect", conflict_detect, conflict_detect_ref, cf_args,
+                        {"recolor_degrees": True},
+                        conflict_bytes(st["adj_cidx"], colors, ctab, v_rows, n, True),
+                        args.reps)),
+    }
+    fr_bytes, fr_iters = fused_round_bytes(st, colors, ghost, "d1", True)
+    log(f"[time] fused_round d1 first-round inputs: the plain fixed point "
+        f"takes {fr_iters} iterations")
+    entries["fused_round"] = kernel_entry(
+        "fused_round", "src/repro_torch/csrc/fused_round.cu",
+        "src/repro/kernels/fused_round.py:298",
+        time_kernel("fused_round", fused_round, fused_round_ref,
+                    (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
+                     st["is_boundary"]), {"problem": "d1"}, fr_bytes, args.reps))
+    del plan, st, vb_args, cf_args, tab, ctab, colors, ghost
 
-    entries = []
-    for name, kern, plain, kargs, kw, nbytes, src, replaces in (
-        ("vb_bit_assign", vb_bit_assign, vb_bit_assign_ref, vb_args, {}, vb_bytes,
-         "src/repro_torch/csrc/vb_bit.cu", "src/repro/kernels/vb_bit.py:84"),
-        ("conflict_detect", conflict_detect, conflict_detect_ref, cf_args,
-         {"recolor_degrees": True}, cf_bytes,
-         "src/repro_torch/csrc/conflict.cu", "src/repro/kernels/conflict.py:107"),
-    ):
-        err = check_equal(f"{name} main-path inputs", kern(*kargs, **kw),
-                          plain(*kargs, **kw))
-        ms = time_ms(lambda: kern(*kargs, **kw), args.reps)
-        plain_ms = time_ms(lambda: plain(*kargs, **kw), max(args.reps // 4, 3))
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({nbytes} B over 3.35 TB/s), "
-            f"{bound_ms / ms:.1%} of the bound")
-        entries.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None,
-        })
-    torch.cuda.synchronize()
+    # d1, cuda_fused: the same four requests.
+    ledger.start()
+    fused, _ = ledger.timed("d1 cuda_fused cold color_distributed",
+                            lambda: color_distributed(pg, backend="cuda_fused",
+                                                      device=device))
+    fplan = ColoringPlan(pg, backend="cuda_fused", device=device)
+    fused = [fused]
+    for i, (m, c0) in enumerate(zip(masks, colors0)):
+        fused.append(ledger.timed(f"d1 cuda_fused warm {i + 1}",
+                                  lambda: fplan.run(color_mask=m, colors0=c0))[0])
+    ledger.end("d1 cuda_fused", ("vb_bit_assign", "fused_round"))
+    check_results("d1 cuda_fused", g, "d1", fused, refs)
+    profile_request("d1 cuda_fused warm",
+                    lambda: fplan.run(color_mask=masks[0], colors0=colors0[0]))
+    del fplan, pg
+    log(f"[memory] d1: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
 
-    log(json.dumps({"kernels": entries}))
+    # The distance-2 family on the same graph with a second ghost layer.
+    t0 = time.perf_counter()
+    pg2 = partition_graph(g, args.parts, second_layer=True)
+    log(f"[graph] partition with a second ghost layer {time.perf_counter() - t0:.1f} s "
+        f"(n_local={pg2.n_local} ghosts={pg2.n_ghost} send={pg2.send_width})")
+    for problem in ("d2", "pd2"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rplan = ColoringPlan(pg2, problem=problem, backend="reference", device=device)
+        torch.cuda.synchronize()
+        log(f"[main] {problem} plan upload {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        refs = [rplan.run()]
+        c0 = refs[0].colors.copy()
+        c0[masks[0]] = 0
+        refs.append(rplan.run(color_mask=masks[0], colors0=c0))
+        torch.cuda.synchronize()
+        log(f"[main] {problem} reference backend on the card: cold and warm "
+            f"{time.perf_counter() - t0:.3f} s (rounds {[r.rounds for r in refs]})")
+        del rplan
+        for backend, uses in (("cuda", ("d2_assign", "conflict_detect")),
+                              ("cuda_fused", ("d2_assign", "fused_round"))):
+            kplan = ColoringPlan(pg2, problem=problem, backend=backend, device=device)
+            ledger.start()
+            got = [ledger.timed(f"{problem} {backend} cold", kplan.run)[0],
+                   ledger.timed(f"{problem} {backend} warm 1",
+                                lambda: kplan.run(color_mask=masks[0], colors0=c0))[0]]
+            ledger.end(f"{problem} {backend}", uses)
+            check_results(f"{problem} {backend}", g, problem, got, refs)
+            if problem == "d2" and backend == "cuda_fused":
+                profile_request("d2 cuda_fused warm",
+                                lambda: kplan.run(color_mask=masks[0], colors0=c0))
+            if problem == "d2" and backend == "cuda":
+                # d2_assign: the first launch of the cold run (every active
+                # row uncolored).
+                st, n = kplan._st, kplan.n_local
+                c00, g00, a00, _ = kplan.request_inputs()
+                c00, g00, a00 = to_device((c00, g00, a00), device)
+                tab = _table(c00, g00)
+                entries["d2_assign"] = kernel_entry(
+                    "d2_assign", "src/repro_torch/csrc/d2_forbidden.cu",
+                    "src/repro/kernels/d2_forbidden.py:89",
+                    time_kernel("d2_assign", d2_assign, d2_assign_ref,
+                                (st["adj_cidx"], st["ext_adj_cidx"], tab,
+                                 torch.ones_like(c00), a00), {"partial_d2": False},
+                                d2_assign_bytes(st["adj_cidx"], st["two_hop_cidx"],
+                                                tab[:, :n], a00, tab, False),
+                                args.reps))
+                del st, tab, c00, g00, a00
+            if problem == "d2" and backend == "cuda_fused":
+                # fused_round on d2: the first round of the cold run, timed
+                # for PERF.md beside the d1 entry of the kernels line.
+                st = kplan._st
+                colors, ghost = first_round_inputs(kplan, "d2", device)
+                nbytes, iters = fused_round_bytes(st, colors, ghost, "d2", True)
+                log(f"[time] fused_round d2 first-round inputs: the plain fixed "
+                    f"point takes {iters} iterations")
+                time_kernel("fused_round d2", fused_round, fused_round_ref,
+                            (st["adj_cidx"], colors, ghost, st["deg_tab"],
+                             st["gid_tab"], st["is_boundary"], st["two_hop_cidx"]),
+                            {"problem": "d2"}, nbytes, args.reps)
+                del st, colors, ghost
+            del kplan
+        log(f"[memory] {problem}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            "GiB allocated")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = color_distributed(pg2, problem="d1_2gl", backend="reference", device=device)
+    for backend in ("cuda", "cuda_fused"):
+        ledger.start()
+        got, _ = ledger.timed(f"d1_2gl {backend} cold color_distributed",
+                              lambda: color_distributed(pg2, problem="d1_2gl",
+                                                        backend=backend, device=device))
+        ledger.end(f"d1_2gl {backend}", ("vb_bit_assign", "conflict_detect"))
+        check_results(f"d1_2gl {backend}", g, "d1_2gl", [got], [ref])
+    log(f"[memory] d1_2gl: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    del pg2
+
+    # -- 4. the kernels line ----------------------------------------------------
+    for name, entry in entries.items():
+        entry["launches"] = ledger.total(name)
+    log(json.dumps({"kernels": [entries[name] for name in wrappers()]}))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card_identity())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,19 @@
 
 The per-part compute steps of the speculate-and-iterate loop — speculative
 local (re)coloring and cross-partition conflict detection — sit behind a
-small :class:`LocalBackend` interface with two implementations:
+small :class:`LocalBackend` interface with three implementations:
 
-* ``reference`` — plain PyTorch (``repro_torch.core.local``); the oracle;
-* ``cuda``      — the chained hand-written kernels
-  (``repro_torch.kernels``): ``vb_bit`` assignment and the ``conflict``
-  detection kernel; the counterpart of ``repro``'s ``pallas`` backend.
+* ``reference``  — plain PyTorch (``repro_torch.core.local``); the oracle;
+* ``cuda``       — the chained hand-written kernels
+  (``repro_torch.kernels``): ``vb_bit`` and ``d2_forbidden`` assignment
+  and the ``conflict`` detection kernel; the counterpart of ``repro``'s
+  ``pallas`` backend;
+* ``cuda_fused`` — ``cuda`` with every d1, d2 and pd2 round in one
+  ``fused_round`` launch; the counterpart of ``pallas_fused``.
 
-Both implement the same math, so swapping backends changes neither
-colorings nor round counts.  On CPU tensors the ``cuda`` backend's kernel
-wrappers take their plain versions, which is how the CPU tests drive its
+All implement the same math, so swapping backends changes neither
+colorings nor round counts.  On CPU tensors the kernel wrappers take their
+plain versions, which is how the CPU tests drive the kernel backends'
 control flow.
 
 Every method works on the stacked part axis: ``adj_cidx (P, N, W)``,
@@ -23,13 +26,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.conflict import v_loses
-from repro_torch.core.local import gather_rows, local_color_d1
+from repro_torch.core.local import gather_rows, local_color_d1, local_color_d2
 from repro_torch.core.registry import Registry
 
 __all__ = [
     "LocalBackend",
     "ReferenceBackend",
     "CudaBackend",
+    "CudaFusedBackend",
     "BACKENDS",
     "get_backend",
     "list_backends",
@@ -50,10 +54,9 @@ class LocalBackend:
 
     def color_d2(self, adj_cidx, two_hop_cidx, ext_adj_cidx, color_tab, active,
                  deg_tab, gid_tab, *, partial_d2: bool, recolor_degrees: bool):
-        """Distance-2 / partial-distance-2 speculative coloring."""
-        raise NotImplementedError(
-            "d2/pd2 coloring is not ported yet (ROADMAP.md, queue 1: "
-            "local_color_d2 and d2_forbidden)")
+        """Distance-2 / partial-distance-2 speculative coloring; returns the
+        updated color table."""
+        raise NotImplementedError
 
     def detect(self, adj_cidx, colors_loc, color_tab, deg_tab, gid_tab,
                is_boundary, *, recolor_degrees: bool):
@@ -96,6 +99,12 @@ class ReferenceBackend(LocalBackend):
         return local_color_d1(adj_cidx, color_tab, active, deg_tab, gid_tab,
                               recolor_degrees=recolor_degrees)
 
+    def color_d2(self, adj_cidx, two_hop_cidx, ext_adj_cidx, color_tab, active,
+                 deg_tab, gid_tab, *, partial_d2, recolor_degrees):
+        return local_color_d2(adj_cidx, two_hop_cidx, color_tab, active,
+                              deg_tab, gid_tab, partial_d2=partial_d2,
+                              recolor_degrees=recolor_degrees)
+
     def detect(self, adj_cidx, colors_loc, color_tab, deg_tab, gid_tab,
                is_boundary, *, recolor_degrees):
         n_loc = colors_loc.shape[-1]
@@ -125,6 +134,14 @@ class CudaBackend(LocalBackend):
         return local_color_d1_cuda(adj_cidx, color_tab, active, deg_tab,
                                    gid_tab, recolor_degrees=recolor_degrees)
 
+    def color_d2(self, adj_cidx, two_hop_cidx, ext_adj_cidx, color_tab, active,
+                 deg_tab, gid_tab, *, partial_d2, recolor_degrees):
+        from repro_torch.kernels.ops import local_color_d2_cuda
+
+        return local_color_d2_cuda(
+            adj_cidx, two_hop_cidx, ext_adj_cidx, color_tab, active, deg_tab,
+            gid_tab, partial_d2=partial_d2, recolor_degrees=recolor_degrees)
+
     def detect(self, adj_cidx, colors_loc, color_tab, deg_tab, gid_tab,
                is_boundary, *, recolor_degrees):
         from repro_torch.kernels.ops import conflict_detect
@@ -137,11 +154,38 @@ class CudaBackend(LocalBackend):
         )
 
 
+class CudaFusedBackend(CudaBackend):
+    """One ``fused_round`` launch per inner round (``kernels/fused_round.py``).
+
+    Overrides :meth:`LocalBackend.round`: detection, zeroing the losers and
+    their recolor fixed point run in one cooperative kernel, with no host
+    sync inside the round.  ``d1_2gl`` recolors ghosts over the extended
+    adjacency and falls back to the decomposed round, as ``repro``'s
+    ``PallasFusedBackend`` does.  The initial coloring is ``cuda``'s.
+    """
+
+    name = "cuda_fused"
+
+    def round(self, st, colors_loc, ghost_colors, *, problem: str,
+              recolor_degrees: bool):
+        if problem == "d1_2gl":
+            return super().round(st, colors_loc, ghost_colors, problem=problem,
+                                 recolor_degrees=recolor_degrees)
+        from repro_torch.kernels.fused_round import fused_round
+
+        return fused_round(
+            st["adj_cidx"], colors_loc, ghost_colors, st["deg_tab"],
+            st["gid_tab"], st["is_boundary"],
+            two_hop_cidx=st["two_hop_cidx"] if problem in ("d2", "pd2") else None,
+            problem=problem, recolor_degrees=recolor_degrees)
+
+
 BACKENDS: Registry = Registry(
     "backend",
     {
         "reference": ReferenceBackend,
         "cuda": CudaBackend,
+        "cuda_fused": CudaFusedBackend,
     },
     instance_of=LocalBackend,
     instantiate=True,

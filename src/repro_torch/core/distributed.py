@@ -3,16 +3,16 @@
 One loop (:func:`_make_loop`) runs the speculate→exchange→round
 structure over the stacked part axis on one device (the ``simulate``
 engine), parameterized by a pluggable compute backend
-(``repro_torch.core.backend``: ``reference`` or ``cuda``) and an exchange
-strategy (``repro_torch.core.exchange``: ``all_gather``).  Per-round
-payload bytes are measured and reported in
+(``repro_torch.core.backend``: ``reference``, ``cuda`` or ``cuda_fused``)
+and an exchange strategy (``repro_torch.core.exchange``: ``all_gather``).
+Per-round payload bytes are measured and reported in
 ``ColoringResult.comm_bytes_by_round``.
 
-This slice ports the distance-1 problem; ``d1_2gl``, ``d2`` and ``pd2``
-raise until their slices land (ROADMAP.md).  :func:`color_distributed`
-routes through ``repro_torch.core.plan.ColoringPlan``, which uploads the
-device state once; this module keeps the device-state construction, the
-per-part step functions and the loop.
+Problems: ``d1``, ``d1_2gl``, ``d2``, ``pd2`` (paper §3.2-§3.6).
+:func:`color_distributed` routes through
+``repro_torch.core.plan.ColoringPlan``, which uploads the device state
+once; this module keeps the device-state construction, the per-part step
+functions and the loop.
 """
 from __future__ import annotations
 
@@ -35,7 +35,6 @@ __all__ = [
 ]
 
 PROBLEMS = ("d1", "d1_2gl", "d2", "pd2")
-PORTED_PROBLEMS = ("d1",)
 
 _REFERENCE = ReferenceBackend()
 
@@ -136,13 +135,6 @@ def state_to_torch(st_np: dict[str, np.ndarray], device) -> dict[str, torch.Tens
 # Per-part step functions over the stacked part axis (no exchange).
 # ---------------------------------------------------------------------------
 
-def _check_problem(problem: str) -> None:
-    if problem not in PORTED_PROBLEMS:
-        raise NotImplementedError(
-            f"problem {problem!r} is not ported yet (ported: {PORTED_PROBLEMS}; "
-            "see ROADMAP.md, queue 1)")
-
-
 def _table(colors_loc, ghost_colors):
     """``(P, N + G + 1)`` color table: owned, ghosts, one zero pad slot."""
     zero = colors_loc.new_zeros((colors_loc.shape[0], 1))
@@ -153,9 +145,32 @@ def _recolor_part(st, colors_loc, ghost_colors, active_loc, active_ghost, *,
                   problem: str, recolor_degrees: bool,
                   backend: LocalBackend | None = None):
     """Recolor active vertices of every part; returns new local colors."""
-    _check_problem(problem)
     backend = backend or _REFERENCE
     n_loc = colors_loc.shape[-1]
+    if problem in ("d2", "pd2"):
+        color_tab = backend.color_d2(
+            st["adj_cidx"], st["two_hop_cidx"], st["ext_adj_cidx"],
+            _table(colors_loc, ghost_colors), active_loc, st["deg_tab"],
+            st["gid_tab"], partial_d2=(problem == "pd2"),
+            recolor_degrees=recolor_degrees,
+        )
+        return color_tab[:, :n_loc]
+    if problem == "d1_2gl":
+        # Locals + conflicted ghosts recolor together over the extended
+        # adjacency; ghosts' speculative colors inform locals (paper §3.4)
+        # and are then discarded (restored from the next exchange).  The
+        # whole contiguous (P, N+G+1, W) table is colored, its pad row
+        # inactive: an inactive row keeps its color (the pad's 0) and loses
+        # nothing, so this equals coloring the N+G rows alone, without
+        # copying them out of the extended adjacency.
+        tab = _table(colors_loc, torch.where(active_ghost, 0, ghost_colors))
+        active_ext = torch.cat([active_loc, active_ghost,
+                                torch.zeros_like(active_loc[:, :1])], dim=1)
+        tab = backend.color_d1(
+            st["ext_adj_cidx"], tab, active_ext, st["deg_tab"], st["gid_tab"],
+            recolor_degrees=recolor_degrees,
+        )
+        return tab[:, :n_loc]
     color_tab = backend.color_d1(
         st["adj_cidx"], _table(colors_loc, ghost_colors), active_loc,
         st["deg_tab"], st["gid_tab"], recolor_degrees=recolor_degrees,
@@ -165,34 +180,47 @@ def _recolor_part(st, colors_loc, ghost_colors, active_loc, active_ghost, *,
 
 def _detect_part(st, colors_loc, ghost_colors, *, problem: str,
                  recolor_degrees: bool, backend: LocalBackend | None = None):
-    """Cross-partition conflict detection (Alg. 3).
+    """Cross-partition conflict detection (Alg. 3 / Alg. 5).
 
-    Returns (lose_loc (P, N), lose_ghost (P, G), n_conflicts (P,)).  Only
-    owned-vs-ghost pairs are conflicts: local pairs are resolved by the
-    local coloring.  Both endpoints' owners reach the same verdict because
-    the loser rule is a pure function of replicated per-vertex data.
+    Sweeps the one-hop block (not for ``pd2``) and the two-hop block
+    (``d2``, ``pd2``).  Returns (lose_loc (P, N), lose_ghost (P, G),
+    n_conflicts (P,)).  Only owned-vs-ghost pairs are conflicts: local
+    pairs are resolved by the local coloring.  Both endpoints' owners
+    reach the same verdict because the loser rule is a pure function of
+    replicated per-vertex data.
     """
-    _check_problem(problem)
     backend = backend or _REFERENCE
     p, n_loc = colors_loc.shape
     n_ghost = ghost_colors.shape[-1]
     color_tab = _table(colors_loc, ghost_colors)
-    adj = st["adj_cidx"]
-    lose_v, lose_o, n_conf = backend.detect(
-        adj, colors_loc, color_tab, st["deg_tab"], st["gid_tab"],
-        st["is_boundary"], recolor_degrees=recolor_degrees,
-    )
+    n_tab = color_tab.shape[-1]
+    blocks = []
+    if problem != "pd2":
+        blocks.append(st["adj_cidx"])
+    if problem in ("d2", "pd2"):
+        blocks.append(st["two_hop_cidx"])
+    lose_loc = torch.zeros_like(colors_loc, dtype=torch.bool)
     # Neighbor-side losses land in the part's lose table: True is written
     # at adj[lose_o], every other lane writes to one spare slot past the
     # end.  Every writer writes True, so the result does not depend on
     # order, and no host sync is needed to size a selection.
-    n_tab = color_tab.shape[-1]
-    part_off = torch.arange(p, device=adj.device, dtype=torch.int64)[:, None, None] * n_tab
-    hit = torch.where(lose_o, adj.to(torch.int64) + part_off, p * n_tab)
-    lose_tab = torch.zeros(p * n_tab + 1, dtype=torch.bool, device=adj.device)
-    lose_tab.index_fill_(0, hit.view(-1), True)
+    lose_tab = torch.zeros(p * n_tab + 1, dtype=torch.bool, device=colors_loc.device)
+    part_off = torch.arange(p, device=colors_loc.device,
+                            dtype=torch.int64)[:, None, None] * n_tab
+    n_conf = torch.zeros((p,), dtype=torch.int32, device=colors_loc.device)
+    for adj in blocks:
+        lose_v, lose_o, c = backend.detect(
+            adj, colors_loc, color_tab, st["deg_tab"], st["gid_tab"],
+            st["is_boundary"], recolor_degrees=recolor_degrees,
+        )
+        lose_loc |= lose_v
+        hit = adj.to(torch.int64)
+        hit += part_off
+        hit.masked_fill_(~lose_o, p * n_tab)
+        lose_tab.index_fill_(0, hit.view(-1), True)
+        n_conf += c
     lose_tab = lose_tab[:-1].view(p, n_tab)
-    return lose_v, lose_tab[:, n_loc:n_loc + n_ghost], n_conf
+    return lose_loc, lose_tab[:, n_loc:n_loc + n_ghost], n_conf
 
 
 def _round_part(st, colors_loc, ghost_colors, *, problem: str,
@@ -274,9 +302,13 @@ def color_distributed(
     Routed through :class:`repro_torch.core.plan.ColoringPlan`: the device
     state is uploaded once, then one request runs.
 
-    backend: ``"reference"`` (plain PyTorch) or ``"cuda"`` (the
-    hand-written kernels; their plain versions on CPU tensors).  Both
-    produce identical colorings and round counts.
+    problem: ``"d1"``, ``"d1_2gl"``, ``"d2"`` or ``"pd2"``; all but d1
+    need ``partition_graph(..., second_layer=True)``.
+
+    backend: ``"reference"`` (plain PyTorch), ``"cuda"`` (the hand-written
+    kernels, chained) or ``"cuda_fused"`` (one kernel per round); the
+    kernel wrappers take their plain versions on CPU tensors.  All produce
+    identical colorings and round counts.
 
     engine: only ``"simulate"`` (every part stacked on one device).
 

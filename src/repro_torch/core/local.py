@@ -1,14 +1,16 @@
 """Speculative local coloring — VB_BIT over the stacked part axis.
 
-Plain-PyTorch reference implementation; ``repro_torch.kernels.vb_bit`` is
-the CUDA kernel with identical semantics (held equal to its plain version
-on the card by ``chip_smoke.py``).
+Plain-PyTorch reference implementation; ``repro_torch.kernels.vb_bit`` and
+``repro_torch.kernels.d2_forbidden`` are the CUDA kernels with identical
+semantics (held equal to their plain versions on the card by
+``chip_smoke.py``).
 
 Algorithm (per part, KokkosKernels VB_BIT):
   repeat until no active vertex is uncolored:
     1. every uncolored active vertex builds a uint32 *forbidden mask* over
        its private color window ``[base_v, base_v + 32)`` from neighbor
-       colors, takes the lowest clear bit; a full mask bumps the window;
+       colors (one- or two-hop), takes the lowest clear bit; a full mask
+       bumps the window;
     2. speculative assignment may collide; the Alg-4 loser rule
        (:func:`repro_torch.core.conflict.v_loses`) uncolors the losers.
 
@@ -28,9 +30,11 @@ import torch
 
 from repro_torch.core.conflict import MASK32, v_loses
 
-__all__ = ["local_color_d1", "forbidden_mask", "pick_color", "collision_losers"]
+__all__ = ["local_color_d1", "local_color_d2", "build_two_hop", "forbidden_mask",
+           "pick_color", "collision_losers"]
 
 MAX_ITERS_D1 = 512
+MAX_ITERS_D2 = 1024
 
 
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -93,23 +97,38 @@ def collision_losers(colors, color_tab, adj_cidx, deg_tab, gid_tab, *,
 
 
 def _speculate_round(color_tab, base, adj_cidx, active, deg_tab, gid_tab,
-                     recolor_degrees):
-    """One speculate+resolve round (one-hop). Returns (color_tab, base)."""
+                     two_hop_cidx, partial_d2, recolor_degrees):
+    """One speculate+resolve round (one-hop, or with ``two_hop_cidx``
+    distance-2; ``partial_d2`` drops the one-hop lanes).  Returns
+    ``(color_tab, base)``."""
     n_loc = active.shape[-1]
     colors_loc = color_tab[:, :n_loc]
     uncolored = active & (colors_loc == 0)
 
+    nbr_colors = gather_rows(color_tab, adj_cidx)
+    if two_hop_cidx is not None:
+        hop2_colors = gather_rows(color_tab, two_hop_cidx)
+        all_colors = (hop2_colors if partial_d2
+                      else torch.cat([nbr_colors, hop2_colors], dim=-1))
+    else:
+        all_colors = nbr_colors
+
     base_eff = torch.where(uncolored, base, 1)
-    mask = forbidden_mask(gather_rows(color_tab, adj_cidx), base_eff)
-    cand, ok = pick_color(mask, base_eff)
+    cand, ok = pick_color(forbidden_mask(all_colors, base_eff), base_eff)
     new_colors = torch.where(uncolored & ok, cand, colors_loc)
     new_base = torch.where(uncolored & ~ok, base + 32, base)
     color_tab = color_tab.clone()
     color_tab[:, :n_loc] = new_colors
 
-    lose = active & collision_losers(new_colors, color_tab, adj_cidx, deg_tab,
-                                     gid_tab, recolor_degrees=recolor_degrees)
-    color_tab[:, :n_loc] = torch.where(lose, 0, new_colors)
+    kw = dict(recolor_degrees=recolor_degrees)
+    lose = torch.zeros_like(uncolored)
+    if two_hop_cidx is not None:
+        lose |= collision_losers(new_colors, color_tab, two_hop_cidx, deg_tab,
+                                 gid_tab, **kw)
+    if two_hop_cidx is None or not partial_d2:
+        lose |= collision_losers(new_colors, color_tab, adj_cidx, deg_tab,
+                                 gid_tab, **kw)
+    color_tab[:, :n_loc] = torch.where(active & lose, 0, new_colors)
     return color_tab, new_base
 
 
@@ -146,6 +165,39 @@ def local_color_d1(
     """Distance-1 speculative local coloring. Returns the updated table."""
     def step(tab, base):
         return _speculate_round(tab, base, adj_cidx, active, deg_tab, gid_tab,
-                                recolor_degrees)
+                                None, False, recolor_degrees)
 
     return iterate_parts(step, color_tab, active, max_iters=max_iters)
+
+
+def local_color_d2(
+    adj_cidx: torch.Tensor,       # (P, Nv, W)
+    two_hop_cidx: torch.Tensor,   # (P, Nv, H2) two-hop color-table indices
+    color_tab: torch.Tensor,
+    active: torch.Tensor,
+    deg_tab: torch.Tensor,
+    gid_tab: torch.Tensor,
+    *,
+    partial_d2: bool = False,
+    recolor_degrees: bool = True,
+    max_iters: int = MAX_ITERS_D2,
+) -> torch.Tensor:
+    """Distance-2 (or partial-distance-2) speculative local coloring."""
+    def step(tab, base):
+        return _speculate_round(tab, base, adj_cidx, active, deg_tab, gid_tab,
+                                two_hop_cidx, partial_d2, recolor_degrees)
+
+    return iterate_parts(step, color_tab, active, max_iters=max_iters)
+
+
+def build_two_hop(adj_cidx: torch.Tensor, full_adj_cidx: torch.Tensor) -> torch.Tensor:
+    """Two-hop color-table indices: ``(P, Nv, W, W)`` flattened to
+    ``(P, Nv, W*W)``.
+
+    ``full_adj_cidx`` ``(P, Nt, W)`` has one adjacency row per color-table
+    entry (pad rows point at the pad slot), so ghosts' neighborhoods
+    resolve too.
+    """
+    p, nv, w = adj_cidx.shape
+    rows = torch.arange(p, device=adj_cidx.device)[:, None, None]
+    return full_adj_cidx[rows, adj_cidx.to(torch.int64)].reshape(p, nv, w * w)

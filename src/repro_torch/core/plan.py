@@ -22,7 +22,6 @@ import torch
 from repro_torch.core.backend import LocalBackend, get_backend
 from repro_torch.core.distributed import (
     ColoringResult,
-    _check_problem,
     _gather_colors,
     _make_loop,
     _recolor_part,
@@ -57,7 +56,6 @@ class ColoringPlan:
                  backend: str | LocalBackend = "reference",
                  exchange: str | ExchangeStrategy = "all_gather",
                  max_rounds: int = 64, device=None):
-        _check_problem(problem)
         self.device = resolve_device(device)
         self.problem = problem
         self.recolor_degrees = recolor_degrees

@@ -67,13 +67,19 @@ def _neighborhood_pairwise_distinct(graph: Graph, colors: np.ndarray) -> bool:
 
     Covers exactly the two-hop pairs: v,w within distance 2 iff they share
     a common neighbor u (or are adjacent — checked separately for D2).
+    Vectorized over the CSR: the ``(u, color)`` pairs of colored neighbors,
+    sorted, hold a duplicate exactly where some N(u) repeats a color.
     """
-    for u in range(graph.n):
-        nc = colors[graph.neighbors(u)]
-        nc = nc[nc > 0]
-        if nc.size != np.unique(nc).size:
-            return False
-    return True
+    src = np.repeat(np.arange(graph.n, dtype=np.int64), np.diff(graph.offsets))
+    nc = np.asarray(colors)[graph.targets].astype(np.int64)
+    keep = nc > 0
+    if not keep.any():
+        return True
+    src, nc = src[keep], nc[keep]
+    # src is non-decreasing, so the keys are already sorted across rows and
+    # the stable sort only reorders within each short row.
+    key = np.sort(src * (int(nc.max()) + 1) + nc, kind="stable")
+    return not (key[1:] == key[:-1]).any()
 
 
 def is_proper_d2(graph: Graph, colors: np.ndarray, *, require_complete: bool = True) -> bool:

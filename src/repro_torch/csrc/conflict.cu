@@ -5,7 +5,8 @@
 // each part p, row r and lane k, with u = adj[p, r, k], the edge (r, u) is
 // a conflict when u is a ghost (n_loc <= u < n_tab), the colors are equal
 // and nonzero and the gids differ. The loser is the lower degree (when
-// recolor_degrees), then the higher gid_hash, then the higher gid.
+// recolor_degrees), then the higher gid_hash, then the higher gid
+// (coloring.cuh, shared with the other kernels).
 //   lose_v[p, r]    = some lane where r loses, and is_boundary[p, r]
 //   lose_o[p, r, k] = the lane's conflict is lost by u
 //   count[p]       += conflicting lanes of part p
@@ -29,19 +30,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coloring.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t gid_hash(int32_t gid) {
-  uint32_t x = static_cast<uint32_t>(gid);
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 __global__ void conflict_kernel(const int32_t* __restrict__ adj,
                                 const int32_t* __restrict__ colors, int64_t colors_ps,
@@ -79,19 +72,13 @@ __global__ void conflict_kernel(const int32_t* __restrict__ adj,
           if (!have_own) {
             gv = gid[p * gid_ps + r];
             if (recolor_degrees) dv = deg[p * deg_ps + r];
-            hv = gid_hash(gv);
+            hv = coloring::gid_hash(gv);
             have_own = true;
           }
           const int32_t gu = gtab[t0 + u];
           if (gu != gv) {
-            bool v_rule;
             const int32_t du = recolor_degrees ? dtab[t0 + u] : dv;
-            if (du != dv) {
-              v_rule = dv < du;
-            } else {
-              const uint32_t hu = gid_hash(gu);
-              v_rule = (hv != hu) ? (hv > hu) : (gv > gu);
-            }
+            const bool v_rule = coloring::v_loses(dv, du, hv, gv, gu);
             v_any |= v_rule;
             o_loses = !v_rule;
             ++found;

@@ -17,7 +17,8 @@
 // and base. There is no arithmetic worth counting.
 //
 // Design: one thread per (part, row), grid (ceil(N / 256), P). The mask
-// lives in a register and the lowest clear bit is __ffs(~mask) - 1, so no
+// lives in a register and the lowest clear bit is __ffs(~mask) - 1
+// (coloring.cuh, shared with the other kernels), so no
 // shared memory and no atomics are needed. Rows that are not active and
 // uncolored skip the adjacency entirely: late in a fixed point only a few
 // rows are uncolored, and the launch then moves little more than the
@@ -25,6 +26,8 @@
 // masked by the row bound, so no input is padded.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "coloring.cuh"
 
 namespace {
 
@@ -52,18 +55,11 @@ __global__ void vb_bit_kernel(const int32_t* __restrict__ adj,
   const int32_t* row = adj + out * w;
   const int32_t* t = tab + p * tab_ps;
   uint32_t mask = 0u;
-  for (int k = 0; k < w; ++k) {
-    const int32_t nc = t[row[k]];
-    const int32_t rel = nc - b;
-    if (nc > 0 && rel >= 0 && rel < 32) mask |= 1u << rel;
-  }
-  if (mask == 0xFFFFFFFFu) {
-    out_colors[out] = c;
-    out_base[out] = b + 32;
-  } else {
-    out_colors[out] = b + (__ffs(~mask) - 1);
-    out_base[out] = b;
-  }
+  for (int k = 0; k < w; ++k) mask |= coloring::window_bit(t[row[k]], b);
+  int32_t color, next_base;
+  coloring::pick_color(mask, b, color, next_base);
+  out_colors[out] = color;
+  out_base[out] = next_base;
 }
 
 }  // namespace

@@ -1,12 +1,17 @@
 """Hand-written CUDA kernels for the coloring hot spots (Hopper, sm_90a).
 
-* ``vb_bit``   -- windowed forbidden-bitmask color assignment
-* ``conflict`` -- Algorithm-4 conflict detection over ELL rows
+* ``vb_bit``       -- windowed forbidden-bitmask color assignment
+* ``conflict``     -- Algorithm-4 conflict detection over ELL rows
+* ``d2_forbidden`` -- net-based two-hop (distance-2) color assignment
+* ``fused_round``  -- one whole round (detect, zero losers, recolor fixed
+  point) in one cooperative launch
 
 Each kernel ships ``csrc/<name>.cu``, a wrapper in ``kernels/<name>.py``
 with its plain-PyTorch version beside it, and a launch counter on the
 wrapper.  A wrapper takes the plain version only for tensors that lie on
 the CPU; for CUDA tensors it launches the kernel or raises.
+``csrc/coloring.cuh`` holds the device math they share (``gid_hash``, the
+Alg-4 loser rule, the window bit and pick), so they agree bit for bit.
 ``kernels/build.py`` compiles the sources with ``nvcc`` at first use.
 """
 from __future__ import annotations

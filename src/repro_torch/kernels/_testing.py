@@ -7,10 +7,17 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SHAPES", "random_part", "random_stacked"]
+__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "random_part", "random_stacked", "random_ext",
+           "random_round"]
 
 # (rows, lanes, ghosts) of tests/test_kernels.py.
 SHAPES = [(16, 3, 8), (100, 7, 40), (256, 1, 1), (515, 12, 200), (64, 33, 9)]
+# (rows, lanes, ghosts) of tests/test_kernels.py::test_d2_forbidden_sweep.
+D2_SHAPES = [(16, 3, 8), (64, 5, 30), (130, 9, 60)]
+# (rows, lanes, ghosts, real ghosts) of the fused-round cases: ragged row
+# counts, and one ghost slot that holds no real ghost (a single part's).
+ROUND_SHAPES = [(100, 7, 40, True), (515, 5, 200, True), (256, 4, 1, False),
+                (1000, 3, 64, True)]
 
 
 def random_part(n, w, n_ghost, n_colors, seed, deg_max=50):
@@ -36,3 +43,30 @@ def random_stacked(n, w, g, n_colors, seed, parts):
     over a leading part axis.  Part ``p`` draws from ``seed + 1000 * p``."""
     per = [random_part(n, w, g, n_colors, seed + 1000 * p) for p in range(parts)]
     return per, [np.stack(x) for x in zip(*per)]
+
+
+def random_ext(n, w, g, seed, parts):
+    """``(P, n+g+1, w)`` random extended adjacency, part ``p`` drawn from
+    ``seed + 1000 * p`` as ``tests/test_kernels.py`` draws one part's."""
+    return np.stack([
+        np.random.default_rng(seed + 1000 * p).integers(0, n + g + 1, (n + g + 1, w))
+        .astype(np.int32) for p in range(parts)])
+
+
+def random_round(n, w, g, seed, parts, *, real_ghosts=True):
+    """Stacked inputs of one coloring round on random tables:
+    ``(adj, two_hop, colors, ghost, deg_tab, gid_tab, is_boundary)``.
+
+    Colors and ghost colors come from a few values so that many owned rows
+    collide with ghosts; ``two_hop`` is the random extended adjacency
+    gathered through ``adj``, as ``build_device_state`` builds it.  Without
+    ``real_ghosts`` the ghost colors are 0, as the one ghost slot of a
+    single part is.
+    """
+    _, (adj, tab, _, _, deg, gid, bd) = random_stacked(n, w, g, 6, seed, parts)
+    ext = random_ext(n, w, g, seed + 7, parts)
+    two_hop = ext[np.arange(parts)[:, None, None], adj].reshape(parts, n, w * w)
+    ghost = tab[:, n:n + g].copy()
+    if not real_ghosts:
+        ghost[:] = 0
+    return adj, two_hop, tab[:, :n].copy(), ghost, deg, gid, bd

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in :func:`build_dir` (the checkout's git-ignored ``build/``,
 or the directory ``$REPRO_TORCH_BUILD_DIR`` names) under a name that
-carries a hash of its source and flags, so an edited source is rebuilt
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt
 and an unchanged one is loaded as it is.  :func:`build` starts
 one ``nvcc`` per missing library, all at once, and waits for them all.
 
@@ -24,7 +25,7 @@ __all__ = ["SOURCES", "build", "build_dir", "load", "nvcc_path", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
-SOURCES = ("vb_bit", "conflict")
+SOURCES = ("vb_bit", "conflict", "d2_forbidden", "fused_round")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +67,8 @@ def build_dir() -> Path:
 def _lib_path(name: str) -> Path:
     h = hashlib.blake2b(digest_size=8)
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # every source includes them
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()}.so"
 

@@ -4,7 +4,7 @@ Both packages get the same graph and partition (byte-equal, see
 ``test_torch_graph.py``); ``repro`` runs ``color_distributed(problem="d1",
 engine="simulate", exchange="all_gather", cache=False)`` with its
 ``reference`` backend (pinned bit-identical to ``pallas`` by
-``tests/test_kernels.py``), and both of the port's backends run on the
+``tests/test_kernels.py``), and the port's three backends run on the
 CPU.  Every field is compared for equality.
 """
 import jax
@@ -20,7 +20,7 @@ from repro.graph import generators as j_gen
 from repro.graph.partition import partition_graph as j_partition
 from repro_torch.core import distributed as t_dist
 from repro_torch.core import exchange as t_exchange
-from repro_torch.core.backend import get_backend
+from repro_torch.core.backend import LocalBackend, get_backend
 from repro_torch.core.plan import ColoringPlan
 from repro_torch.core.validate import is_proper_d1
 from repro_torch.graph import generators as t_gen
@@ -33,6 +33,7 @@ GRAPHS = {
     "rmat": ("rmat", (8, 6), {"seed": 3}),
     "myc": ("mycielskian", (8,), {}),
 }
+BACKENDS = ("reference", "cuda", "cuda_fused")
 FIELDS = ("rounds", "converged", "total_conflicts", "n_colors",
           "comm_bytes_per_round", "comm_bytes_total", "problem", "n_parts",
           "exchange")
@@ -61,7 +62,7 @@ def test_color_distributed_matches_simulate(gname, parts):
     _, jpg, tg, tpg = _pgs(gname, parts)
     want = j_dist.color_distributed(jpg, problem="d1", engine="simulate",
                                     exchange="all_gather", cache=False)
-    for backend in ("reference", "cuda"):
+    for backend in BACKENDS:
         got = t_dist.color_distributed(tpg, backend=backend, device="cpu")
         assert got.backend == backend
         assert_same_result(got, want)
@@ -76,7 +77,7 @@ def test_color_distributed_matches_without_recolor_degrees(gname):
     _, jpg, _, tpg = _pgs(gname, 3)
     want = j_dist.color_distributed(jpg, problem="d1", engine="simulate",
                                     recolor_degrees=False, cache=False)
-    for backend in ("reference", "cuda"):
+    for backend in BACKENDS:
         got = t_dist.color_distributed(tpg, backend=backend, device="cpu",
                                        recolor_degrees=False)
         assert_same_result(got, want)
@@ -88,8 +89,10 @@ def test_round_cap_matches():
     want = j_dist.color_distributed(jpg, problem="d1", engine="simulate",
                                     max_rounds=1, cache=False)
     assert not want.converged
-    got = t_dist.color_distributed(tpg, backend="cuda", device="cpu", max_rounds=1)
-    assert_same_result(got, want)
+    for backend in ("cuda", "cuda_fused"):
+        got = t_dist.color_distributed(tpg, backend=backend, device="cpu",
+                                       max_rounds=1)
+        assert_same_result(got, want)
 
 
 @pytest.mark.parametrize("gname", ["hex", "rmat"])
@@ -97,7 +100,7 @@ def test_round_cap_matches():
 def test_plan_warm_requests_match(gname, clear_masked):
     jg, jpg, _, tpg = _pgs(gname, 3)
     jplan = j_build_plan(jpg, problem="d1", engine="simulate", state_cache=False)
-    tplans = [ColoringPlan(tpg, backend=b, device="cpu") for b in ("reference", "cuda")]
+    tplans = [ColoringPlan(tpg, backend=b, device="cpu") for b in BACKENDS]
     prev = jplan.run()
     for tplan in tplans:
         assert_same_result(tplan.run(), prev)
@@ -177,12 +180,11 @@ def test_unported_paths_raise():
     _, _, tg, tpg = _pgs("hex", 3)
     with pytest.raises(NotImplementedError, match="not ported"):
         t_dist.color_distributed(tpg, engine="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ColoringPlan(t_partition(tg, 3, second_layer=True), problem="d2",
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_backend("cuda").color_d2(*([None] * 7), partial_d2=False,
-                                     recolor_degrees=True)
+    with pytest.raises(ValueError, match="unknown exchange"):
+        ColoringPlan(tpg, exchange="sparse_delta", device="cpu")
+    with pytest.raises(NotImplementedError):
+        LocalBackend().color_d2(*([None] * 7), partial_d2=False,
+                                recolor_degrees=True)
     with pytest.raises(ValueError, match="unknown backend"):
         get_backend("pallas")
 

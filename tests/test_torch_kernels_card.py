@@ -13,8 +13,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._testing import SHAPES, random_stacked
+from repro_torch.kernels._testing import (
+    D2_SHAPES, ROUND_SHAPES, SHAPES, random_ext, random_round, random_stacked,
+)
 from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
+from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
+from repro_torch.kernels.fused_round import fused_round, fused_round_ref
 from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
 
 
@@ -59,5 +63,40 @@ def test_conflict_kernel_matches_plain(card, n, w, g, parts, rd):
     want = conflict_detect_ref(*args, recolor_degrees=rd)
     torch.cuda.synchronize()
     assert conflict_detect.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,g", D2_SHAPES + [(515, 6, 200)])
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("partial_d2", [False, True])
+def test_d2_assign_kernel_matches_plain(card, n, w, g, parts, partial_d2):
+    _, (adj, tab, base, active, *_) = random_stacked(n, w, g, 20, n * 7, parts)
+    args = _t(adj, random_ext(n, w, g, n, parts), tab, base, active, device=card)
+    before = d2_assign.launches
+    got = d2_assign(*args, partial_d2=partial_d2)
+    want = d2_assign_ref(*args, partial_d2=partial_d2)
+    torch.cuda.synchronize()
+    assert d2_assign.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,g,real", ROUND_SHAPES)
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("problem", ["d1", "d2", "pd2"])
+@pytest.mark.parametrize("rd", [True, False])
+def test_fused_round_kernel_matches_plain(card, n, w, g, real, parts, problem, rd):
+    adj, th, colors, ghost, deg, gid, bd = _t(
+        *random_round(n, w, g, n + parts, parts, real_ghosts=real), device=card)
+    th = None if problem == "d1" else th
+    kw = dict(problem=problem, recolor_degrees=rd)
+    before = fused_round.launches
+    got = fused_round(adj, colors, ghost, deg, gid, bd, th, **kw)
+    want = fused_round_ref(adj, colors, ghost, deg, gid, bd, th, **kw)
+    torch.cuda.synchronize()
+    assert fused_round.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
