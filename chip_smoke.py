@@ -14,7 +14,9 @@ order it:
    the same CUDA tensors, on random inputs (the shapes of
    ``tests/test_kernels.py`` with 1 and 3 parts, both ``recolor_degrees``
    and ``partial_d2`` settings, cases without ghosts and with one ghost
-   slot that holds no real ghost, ragged row counts);
+   slot that holds no real ghost, ragged row counts; ``pair_scatter`` on
+   batches of 1 to 64 rows with padding, up to ``S`` pairs and none real;
+   ``fused_round`` with ``(slot, color)`` pairs for d1 and d2);
 3. generates the graph once and drives every path of the port on it, each
    with the kernels' launch counts set to 0 just before it and read just
    after it (and around each request), each kernel > 0 on the paths that
@@ -26,16 +28,29 @@ order it:
      and ``colors0`` set to the previous coloring with the masked
      vertices cleared; a cold and a warm request profiled;
    - d1 ``cuda_fused``: the same four requests; a warm one profiled;
+   - the ghost exchanges on ``cuda_fused``: ``halo``, ``delta``,
+     ``sparse_delta(scatter="cuda")`` and ``hier_delta(scatter="cuda")``,
+     the same four requests on one plan each, each equal to ``all_gather``
+     (the ``cuda_fused`` requests above) in colors, rounds, conflicts and
+     colors used, and the sparse two equal in every field (comm bytes by
+     round and by level included) to the same exchange with the plain
+     ``scatter="reference"``; their bytes printed; a warm
+     ``sparse_delta`` request profiled;
    - on the same graph partitioned with a second ghost layer, ``d2`` and
      ``pd2`` on ``cuda`` and ``cuda_fused``, a cold and a warm 10% request
-     each (a ``cuda_fused`` d2 warm request profiled), and ``d1_2gl``
-     cold on both; the peak device memory after each problem;
+     each (a ``cuda_fused`` d2 warm request profiled), d2 on ``cuda_fused``
+     with ``sparse_delta`` and ``hier_delta`` (``scatter="cuda"``), cold
+     and warm, equal to ``all_gather``, and ``d1_2gl`` cold on both
+     backends; the peak device memory after each problem;
 4. times each kernel and its plain version (CUDA events, median) on the
    inputs of its first main-path launch, right after the path that makes
-   them (``fused_round`` on d1's and, for ``PERF.md``, on d2's), holds
-   them equal, computes each kernel's bound from the bytes these inputs
-   need it to move, and prints one ``{"kernels": [...]}`` line with each
-   kernel's launches summed over the paths;
+   them (``fused_round`` on d1's, with and without pairs, and, for
+   ``PERF.md``, on d2's; ``pair_scatter`` on the first ``sparse_delta``
+   round's, beside the one PyTorch call that computes the same function,
+   ``torch.scatter``), holds them equal, computes each kernel's bound
+   from the bytes these inputs need it to move, and prints one
+   ``{"kernels": [...]}`` line with each kernel's launches summed over the
+   paths;
 5. prints ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -74,10 +89,11 @@ def wrappers() -> dict:
     from repro_torch.kernels.conflict import conflict_detect
     from repro_torch.kernels.d2_forbidden import d2_assign
     from repro_torch.kernels.fused_round import fused_round
+    from repro_torch.kernels.scatter import pair_scatter
     from repro_torch.kernels.vb_bit import vb_bit_assign
 
     return {k.__name__: k for k in (vb_bit_assign, conflict_detect, d2_assign,
-                                    fused_round)}
+                                    fused_round, pair_scatter)}
 
 
 def to_device(arrays, device):
@@ -99,8 +115,10 @@ def check_equal(name, got, want) -> int:
     """Exact equality of tensor tuples; returns the max absolute difference."""
     import torch
 
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     err = 0
-    for a, b in zip(got, want):
+    for a, b in zip(got, want, strict=True):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
@@ -113,11 +131,13 @@ def check_equal(name, got, want) -> int:
 def kernel_vs_plain_grid(device) -> dict[str, int]:
     """Random cases of every kernel against its plain version; case counts."""
     from repro_torch.kernels._testing import (
-        D2_SHAPES, ROUND_SHAPES, SHAPES, random_ext, random_round,
+        D2_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext, random_pairs,
+        random_round, round_pairs,
     )
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
     from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
     from repro_torch.kernels.fused_round import fused_round, fused_round_ref
+    from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
     from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
 
     cases = dict.fromkeys(wrappers(), 0)
@@ -158,6 +178,19 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
                     check_equal(f"fused_round {n, w, g, real, parts, problem, rd}",
                                 fused_round(*args, **kw), fused_round_ref(*args, **kw))
                     cases["fused_round"] += 1
+            pairs = to_device(round_pairs(g, n + 11, parts), device)
+            for problem in ("d1", "d2"):
+                args = (adj, colors, ghost, deg, gid, bd,
+                        None if problem == "d1" else th, *pairs)
+                check_equal(f"fused_round pairs {n, w, g, real, parts, problem}",
+                            fused_round(*args, problem=problem),
+                            fused_round_ref(*args, problem=problem))
+                cases["fused_round"] += 1
+    for rows, s, c, k in SCATTER_SHAPES:
+        args = to_device(random_pairs(rows, s, c, rows + s + c, k=k), device)
+        check_equal(f"pair_scatter {rows, s, c, k}", pair_scatter(*args),
+                    pair_scatter_ref(*args))
+        cases["pair_scatter"] += 1
     return cases
 
 
@@ -299,9 +332,13 @@ def conflict_bytes(adj, colors, ctab, v_rows, n_loc, recolor_degrees) -> int:
             + int(v_rows.sum()))
 
 
-def fused_round_bytes(st, colors, ghost, problem, recolor_degrees) -> tuple[int, int]:
+def fused_round_bytes(st, colors, ghost, problem, recolor_degrees,
+                      pairs=None) -> tuple[int, int]:
     """Bytes ``fused_round`` must move on these inputs, each read once, and
     the fixed-point iterations the plain version takes on them.
+
+    With ``pairs`` (slots, colors), each real pair is read once and the
+    round is counted on the ghosts the pairs make.
 
     The detection sweep once, as :func:`conflict_bytes` counts it over each
     block it sweeps, without the per-lane output: every row's color, every
@@ -318,7 +355,12 @@ def fused_round_bytes(st, colors, ghost, problem, recolor_degrees) -> tuple[int,
     from repro_torch.core.local import (
         MAX_ITERS_D1, MAX_ITERS_D2, _speculate_round, gather_rows, iterate_parts,
     )
+    from repro_torch.kernels.scatter import pair_scatter_ref
 
+    pair_bytes = 0
+    if pairs is not None:
+        ghost = pair_scatter_ref(ghost, *pairs)
+        pair_bytes = int(((pairs[0] >= 0) & (pairs[0] < ghost.shape[-1])).sum()) * 8
     two_hop = st["two_hop_cidx"] if problem != "d1" else None
     blocks = ([st["adj_cidx"]] if problem != "pd2" else []) + (
         [two_hop] if two_hop is not None else [])
@@ -363,7 +405,14 @@ def fused_round_bytes(st, colors, ghost, problem, recolor_degrees) -> tuple[int,
 
     iterate_parts(step, _table(torch.where(lose, 0, colors), ghost), lose,
                   max_iters=MAX_ITERS_D1 if problem == "d1" else MAX_ITERS_D2)
-    return nbytes + sum(per_iter), len(per_iter)
+    return nbytes + pair_bytes + sum(per_iter), len(per_iter)
+
+
+def pair_scatter_bytes(table, slots) -> int:
+    """Bytes ``pair_scatter`` must move on these inputs: the table read and
+    written once, and each real pair (slot and value) read once."""
+    real = (slots >= 0) & (slots < table.shape[-1])
+    return table.numel() * 4 * 2 + int(real.sum()) * 8
 
 
 def same_result(a, b) -> bool:
@@ -466,8 +515,59 @@ def first_round_inputs(plan, problem, device):
     c0, g0, a0 = to_device((c0, g0, a0), device)
     colors = _recolor_part(plan._st, c0, g0, a0, torch.zeros_like(g0, dtype=torch.bool),
                            problem=problem, recolor_degrees=True, backend=CudaBackend())
-    ghost, _, _ = plan._strategy.stacked(plan._st, colors, ())
+    ghost, _, _ = plan._strategy.stacked(plan._st, colors,
+                                         plan._strategy.init_state(plan._st))
     return colors, ghost
+
+
+def first_pairs(plan, colors, ghost):
+    """The ``pair_scatter`` inputs of a ``sparse_delta`` plan's first
+    exchange after the initial coloring ``colors``: the receiver-major
+    ``(P, P, S)`` slot tables and the pairs packed for them, as
+    ``SparseDeltaExchange.stacked`` makes them.  Checks that the pairs
+    deliver ``ghost``, the ghosts of that exchange."""
+    import torch
+
+    from repro_torch.core.exchange import _gather_ghosts, pack_pairs, send_buffer
+    from repro_torch.kernels.scatter import pair_scatter_ref
+
+    st = plan._st
+    state = plan._strategy.init_state(st)
+    send = send_buffer(colors, st)
+    changed = st["send_mask"] & (send != state["prev_send"])
+    slots, cols, _ = pack_pairs(changed[:, None, :] & st["peer_need"], send[:, None, :])
+    args = (state["ghost_tab"], slots.transpose(0, 1).contiguous(),
+            cols.transpose(0, 1).contiguous())
+    if not torch.equal(_gather_ghosts(pair_scatter_ref(*args), st), ghost):
+        raise AssertionError("the first sparse_delta pairs do not deliver its ghosts")
+    return args
+
+
+def check_exchange(label, g, problem, results, ag_results) -> None:
+    """Every result proper and equal to ``all_gather``'s in colors, rounds,
+    conflicts and colors used (its bytes are its own)."""
+    from repro_torch.core import validate
+
+    proper = getattr(validate, VALIDATORS[problem])
+    for i, (r, ag) in enumerate(zip(results, ag_results, strict=True)):
+        if not (r.converged and proper(g, r.colors)):
+            raise AssertionError(f"{label} request {i}: coloring is not proper")
+        if not (np.array_equal(r.colors, ag.colors) and r.rounds == ag.rounds
+                and r.total_conflicts == ag.total_conflicts
+                and r.n_colors == ag.n_colors):
+            raise AssertionError(f"{label} request {i}: differs from all_gather")
+    log(f"[main] {label}: {len(results)} requests proper ({VALIDATORS[problem]}) and "
+        "equal to all_gather in colors, rounds, conflicts and colors used; comm bytes "
+        f"total {[r.comm_bytes_total for r in results]}, [intra, inter] "
+        f"{[[r.comm_bytes_intra, r.comm_bytes_inter] for r in results]}, by round "
+        f"{[[int(b) for b in r.comm_bytes_by_round] for r in results]}")
+
+
+def make_exchange(name, scatter=None):
+    """A fresh exchange strategy; the sparse ones with ``scatter``."""
+    from repro_torch.core.exchange import EXCHANGES
+
+    return EXCHANGES[name](scatter=scatter) if scatter else EXCHANGES[name]()
 
 
 def main(argv=None) -> int:
@@ -498,6 +598,7 @@ def run(device, args) -> int:
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
     from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
     from repro_torch.kernels.fused_round import fused_round, fused_round_ref
+    from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
     from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
     from repro_torch.launch.color import make_graph
 
@@ -611,7 +712,22 @@ def run(device, args) -> int:
         time_kernel("fused_round", fused_round, fused_round_ref,
                     (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
                      st["is_boundary"]), {"problem": "d1"}, fr_bytes, args.reps))
-    del plan, st, vb_args, cf_args, tab, ctab, colors, ghost
+    # fused_round with pairs on the same inputs: the ghosts start at 0 and
+    # every real ghost's color arrives as a (slot, color) pair, which must
+    # give the same round.
+    n_ghost = ghost.shape[-1]
+    pslots = torch.where(st["ghost_real"],
+                         torch.arange(n_ghost, dtype=torch.int32, device=device), n_ghost)
+    pair_args = (st["adj_cidx"], colors, torch.zeros_like(ghost), st["deg_tab"],
+                 st["gid_tab"], st["is_boundary"], None, pslots, ghost)
+    check_equal("fused_round with pairs against without", fused_round(*pair_args),
+                fused_round(st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
+                            st["is_boundary"]))
+    fp_bytes, _ = fused_round_bytes(st, colors, torch.zeros_like(ghost), "d1", True,
+                                    pairs=(pslots, ghost))
+    time_kernel("fused_round with pairs", fused_round, fused_round_ref, pair_args,
+                {"problem": "d1"}, fp_bytes, args.reps)
+    del plan, st, vb_args, cf_args, tab, ctab, colors, ghost, pair_args, pslots
 
     # d1, cuda_fused: the same four requests.
     ledger.start()
@@ -627,7 +743,66 @@ def run(device, args) -> int:
     check_results("d1 cuda_fused", g, "d1", fused, refs)
     profile_request("d1 cuda_fused warm",
                     lambda: fplan.run(color_mask=masks[0], colors0=colors0[0]))
-    del fplan, pg
+    del fplan
+
+    # The ghost exchanges on cuda_fused, one plan each, the same requests.
+    for name in ("halo", "delta", "sparse_delta", "hier_delta"):
+        scatter = "cuda" if name in ("sparse_delta", "hier_delta") else None
+        ledger.start()
+        t0 = time.perf_counter()
+        xplan = ColoringPlan(pg, backend="cuda_fused", exchange=make_exchange(name, scatter),
+                             device=device)
+        torch.cuda.synchronize()
+        log(f"[main] d1 {name} plan upload (route plan included) "
+            f"{time.perf_counter() - t0:.3f} s")
+        got = [ledger.timed(f"d1 {name} cold", xplan.run)[0]]
+        for i, (m, c0) in enumerate(zip(masks, colors0)):
+            got.append(ledger.timed(f"d1 {name} warm {i + 1}",
+                                    lambda: xplan.run(color_mask=m, colors0=c0))[0])
+        ledger.end(f"d1 {name}", ("vb_bit_assign", "fused_round")
+                   + (("pair_scatter",) if scatter else ()))
+        check_exchange(f"d1 {name}", g, "d1", got, fused)
+        if scatter:
+            rplan = ColoringPlan(pg, backend="cuda_fused",
+                                 exchange=make_exchange(name, "reference"), device=device)
+            plain = [rplan.run()] + [rplan.run(color_mask=m, colors0=c0)
+                                     for m, c0 in zip(masks, colors0)]
+            del rplan
+            if not all(same_result(a, b) for a, b in zip(got, plain, strict=True)):
+                raise AssertionError(f"d1 {name}: the pair_scatter kernel's requests "
+                                     "differ from scatter='reference'")
+            log(f"[main] d1 {name}: 4 requests equal to scatter='reference' in every "
+                "field, comm bytes by round and by level included")
+        if name == "sparse_delta":
+            profile_request("d1 sparse_delta warm",
+                            lambda: xplan.run(color_mask=masks[0], colors0=colors0[0]))
+            # pair_scatter: the first exchange of the cold request.
+            colors, ghost = first_round_inputs(xplan, "d1", device)
+            ps_args = first_pairs(xplan, colors, ghost)
+            table, slots, vals = ps_args
+            width = table.shape[-1]
+            log(f"[time] pair_scatter first sparse_delta round: table "
+                f"{tuple(table.shape)}, {int((slots < width).sum())} real pairs")
+            measured = time_kernel("pair_scatter", pair_scatter, pair_scatter_ref, ps_args,
+                                   {}, pair_scatter_bytes(table, slots), args.reps)
+            # The one PyTorch call that computes the same function: an
+            # out-of-place scatter with the pads routed to a spare column.
+            spare = torch.cat([table, torch.zeros_like(table[..., :1])], dim=-1)
+            idx = torch.where(slots < width, slots, width).to(torch.int64)
+            check_equal("pair_scatter against torch.scatter",
+                        torch.scatter(spare, -1, idx, vals)[..., :width],
+                        pair_scatter(*ps_args))
+            measured["library_ms"] = time_ms(lambda: torch.scatter(spare, -1, idx, vals),
+                                             args.reps)
+            log(f"[time] pair_scatter library call (torch.scatter): "
+                f"{measured['library_ms']:.4f} ms")
+            entries["pair_scatter"] = {
+                **kernel_entry("pair_scatter", "src/repro_torch/csrc/pair_scatter.cu",
+                               "src/repro/kernels/scatter.py:62", measured),
+                "library_ms": measured["library_ms"]}
+            del colors, ghost, ps_args, table, slots, vals, spare, idx
+        del xplan
+    del pg
     log(f"[memory] d1: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
 
     # The distance-2 family on the same graph with a second ghost layer.
@@ -660,6 +835,8 @@ def run(device, args) -> int:
                                 lambda: kplan.run(color_mask=masks[0], colors0=c0))[0]]
             ledger.end(f"{problem} {backend}", uses)
             check_results(f"{problem} {backend}", g, problem, got, refs)
+            if backend == "cuda_fused":
+                fused = got
             if problem == "d2" and backend == "cuda_fused":
                 profile_request("d2 cuda_fused warm",
                                 lambda: kplan.run(color_mask=masks[0], colors0=c0))
@@ -694,6 +871,18 @@ def run(device, args) -> int:
                             {"problem": "d2"}, nbytes, args.reps)
                 del st, colors, ghost
             del kplan
+        if problem == "d2":
+            # The sparse exchanges on d2, against all_gather on cuda_fused.
+            for name in ("sparse_delta", "hier_delta"):
+                ledger.start()
+                xplan = ColoringPlan(pg2, problem="d2", backend="cuda_fused",
+                                     exchange=make_exchange(name, "cuda"), device=device)
+                got = [ledger.timed(f"d2 {name} cold", xplan.run)[0],
+                       ledger.timed(f"d2 {name} warm 1",
+                                    lambda: xplan.run(color_mask=masks[0], colors0=c0))[0]]
+                ledger.end(f"d2 {name}", ("d2_assign", "fused_round", "pair_scatter"))
+                check_exchange(f"d2 {name}", g, "d2", got, fused)
+                del xplan
         log(f"[memory] {problem}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             "GiB allocated")
 

@@ -1,11 +1,13 @@
 """Core library: the paper's distributed speculate-and-iterate coloring.
 
 Public API:
-  - color_distributed / color_single_device: distance-1 coloring over the
-    stacked part axis on one device (``simulate`` engine)
+  - color_distributed / color_single_device: d1, d1_2gl, d2 and pd2
+    coloring over the stacked part axis on one device (``simulate`` engine)
   - plan.ColoringPlan: device state uploaded once, many requests
-  - backend: ``reference`` (plain PyTorch) / ``cuda`` (hand-written kernels)
-  - exchange: ghost-exchange strategies (``all_gather``)
+  - backend: ``reference`` (plain PyTorch) / ``cuda`` / ``cuda_fused``
+    (hand-written kernels)
+  - exchange: ghost-exchange strategies (``all_gather``, ``halo``,
+    ``delta``, ``sparse_delta``, ``hier_delta``)
   - validate: proper-coloring checkers
 """
 from repro_torch.core.backend import BACKENDS, LocalBackend, get_backend, list_backends

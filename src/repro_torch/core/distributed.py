@@ -4,9 +4,10 @@ One loop (:func:`_make_loop`) runs the speculate→exchange→round
 structure over the stacked part axis on one device (the ``simulate``
 engine), parameterized by a pluggable compute backend
 (``repro_torch.core.backend``: ``reference``, ``cuda`` or ``cuda_fused``)
-and an exchange strategy (``repro_torch.core.exchange``: ``all_gather``).
-Per-round payload bytes are measured and reported in
-``ColoringResult.comm_bytes_by_round``.
+and an exchange strategy (``repro_torch.core.exchange``: ``all_gather``,
+``halo``, ``delta``, ``sparse_delta``, ``hier_delta``).  Per-round payload
+bytes are measured and reported in ``ColoringResult.comm_bytes_by_round``
+and, split ``[intra-node, inter-node]``, ``comm_bytes_by_level``.
 
 Problems: ``d1``, ``d1_2gl``, ``d2``, ``pd2`` (paper §3.2-§3.6).
 :func:`color_distributed` routes through
@@ -310,6 +311,18 @@ def color_distributed(
     kernel wrappers take their plain versions on CPU tensors.  All produce
     identical colorings and round counts.
 
+    exchange: the ghost-exchange strategy, a name or an instance:
+    ``"all_gather"`` (every send buffer to every part), ``"halo"`` (p±1
+    neighbors; slab partitions only, else ``ValueError``), ``"delta"``
+    (changed colors only), ``"sparse_delta"`` (changed colors as
+    ``(slot, color)`` pairs over an edge-colored route plan) or
+    ``"hier_delta"`` (the same over a two-level ``(node, local)``
+    hierarchy, packed wire widths, bytes split intra/inter node).
+    ``SparseDeltaExchange(scatter="cuda")`` and
+    ``HierDeltaExchange(scatter="cuda")`` apply received pairs with the
+    ``pair_scatter`` kernel.  All give identical colorings and round
+    counts; each reports its own measured bytes.
+
     engine: only ``"simulate"`` (every part stacked on one device).
 
     color_mask: optional (n_global,) bool — restrict coloring to a vertex
@@ -333,7 +346,10 @@ def color_single_device(
     graph: Graph, *, problem: str = "d1", recolor_degrees: bool = True,
     backend: str | LocalBackend = "reference", device=None,
 ) -> ColoringResult:
-    """Single-device speculate&iterate (the paper's 1-GPU baseline)."""
+    """Single-device speculate&iterate (the paper's 1-GPU baseline).
+
+    ``device``: ``None`` means ``"cuda"``; pass ``"cpu"`` to run on the CPU.
+    """
     pg = partition_graph(graph, 1, second_layer=problem != "d1")
     return color_distributed(
         pg, problem=problem, recolor_degrees=recolor_degrees,

@@ -49,7 +49,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 class ColoringPlan:
-    """Frozen static half of a distributed coloring; see module docstring."""
+    """Frozen static half of a distributed coloring; see module docstring.
+
+    The exchange strategy's ``prepare`` tables are uploaded with the rest
+    of the device state; its loop state (``init_state``) is made on the
+    plan's device for every request.  A strategy that ``requires_slab``
+    raises ``ValueError`` on a partition whose ghosts are not all on
+    parts p±1.
+    """
 
     def __init__(self, pg: PartitionedGraph, *, problem: str = "d1",
                  recolor_degrees: bool = True,
@@ -72,12 +79,16 @@ class ColoringPlan:
         self._ghost_gids = np.clip(pg.ghost_gid, 0, pg.n_global - 1)
         # Copy the strategy so plans never share prepare()-written state.
         self._strategy = copy.copy(get_exchange(exchange))
+        if self._strategy.requires_slab and not pg.halo_neighbors_ok():
+            raise ValueError(f"{self._strategy.name} exchange requires slab "
+                             "partitions (ghosts on p±1 only)")
         self._backend = get_backend(backend)
 
         st_np = build_device_state(pg, problem)
         # active0 is the per-request input that color_mask varies.
         self._active0 = st_np.pop("active0")
-        st_np.update(self._strategy.prepare(pg, st_np))
+        # Route plans are colored on the plan's own device.
+        st_np.update(self._strategy.prepare(pg, st_np, device=self.device))
         self._st = state_to_torch(st_np, self.device)
 
         step_kw = dict(problem=problem, recolor_degrees=recolor_degrees,

@@ -1,12 +1,14 @@
 // One whole inner round of the coloring loop in one launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_round.py::_make_kernel
-// (wrapper fused_round) without its optional (slot, color) pair scatter,
-// which no path of the port passes yet. Same function, for every part p of
-// the stacked part axis at once, bit for bit the decomposed round
-// _detect_part -> zero the losers -> _recolor_part of the reference
-// backend (repro_torch/kernels/fused_round.py::fused_round_ref):
+// (wrapper fused_round), with its optional (slot, color) pair input. Same
+// function, for every part p of the stacked part axis at once, bit for bit
+// the decomposed round pair_scatter -> _detect_part -> zero the losers ->
+// _recolor_part of the reference backend
+// (repro_torch/kernels/fused_round.py::fused_round_ref):
 //
+//   0. with pairs: ghost[p, pair_slots[p, j]] = pair_colors[p, j] where
+//      0 <= pair_slots[p, j] < G (anything else is padding and is dropped);
 //   1. detect: the Algorithm-4 owned-vs-ghost sweep of conflict.cu over the
 //      one-hop block (not for pd2), then over the two-hop block (d2, pd2).
 //      lose_v = lost on some lane of either sweep, and is_boundary;
@@ -33,7 +35,12 @@
 // stride over tiles of 256 rows of one part, so a warp never spans two
 // parts and every thread keeps the same rows in every phase. Phases end in
 // cooperative_groups grid syncs. The working table tab (P, N + G + 1)
-// holds owned colors, ghosts and a zero pad. Step (a) writes new colors
+// holds owned colors, ghosts and a zero pad. Without pairs, detection
+// reads the ghost input and the one sync before the fixed point stays;
+// with pairs (a template flag), the ghost segment is built, a grid sync
+// orders it before the pair stores (a pair may land on an entry another
+// block copies), one thread per pair stores its color, and after a second
+// sync detection reads the ghosts from the table. Step (a) writes new colors
 // and window bases into newc and base; step (b) reads owned neighbors from
 // newc and ghost and pad lanes from tab, which the loop never writes, and
 // writes lose ? 0 : newc into tab's owned segment, so no phase reads what
@@ -68,7 +75,9 @@ struct Args {
   const int32_t* deg;        // (P, T), part stride tab_ps
   const int32_t* gid;        // (P, T), part stride tab_ps
   const uint8_t* boundary;   // (P, N), part stride boundary_ps
-  int64_t colors_ps, ghost_ps, tab_ps, boundary_ps;
+  const int32_t* pair_slots; // (P, C), part stride slots_ps; with pairs only
+  const int32_t* pair_colors;// (P, C), part stride pcolors_ps
+  int64_t colors_ps, ghost_ps, tab_ps, boundary_ps, slots_ps, pcolors_ps;
   int32_t* tab;              // scratch (P, T) contiguous
   int32_t* newc;             // scratch (P, N)
   int32_t* base;             // scratch (P, N)
@@ -77,7 +86,7 @@ struct Args {
   uint8_t* lose_v;           // (P, N)
   uint8_t* lose_ghost;       // (P, G), zeroed
   int32_t* count;            // (P,), zeroed
-  int n_parts, n, g, w, h2, max_iters;
+  int n_parts, n, g, w, h2, c, max_iters;
   bool recolor_degrees;
 };
 
@@ -101,18 +110,21 @@ struct Own {
 
 // Algorithm-4 sweep of one owned row with color cv > 0 over one adjacency
 // block (the body of conflict.cu): returns the conflicting lanes, or-s the
-// row's loss into v_any and stores the ghost-side losses.
+// row's loss into v_any and stores the ghost-side losses. Ghost colors come
+// from the input, or with pairs from the table's patched ghost segment.
+template <bool kPairs>
 __device__ __forceinline__ int detect_row(const Args& a, const int32_t* lanes, int k_lanes,
                                           int64_t p, int r, int32_t cv, Own& own,
                                           bool& v_any) {
-  const int32_t* ghost = a.ghost + p * a.ghost_ps;
+  const int32_t* ghost =
+      kPairs ? a.tab + p * (a.n + a.g + 1) + a.n : a.ghost + p * a.ghost_ps;
   const int32_t* deg = a.deg + p * a.tab_ps;
   const int32_t* gid = a.gid + p * a.tab_ps;
   int found = 0;
   for (int k = 0; k < k_lanes; ++k) {
     const int32_t u = lanes[k];
     if (u < a.n || u >= a.n + a.g) continue;           // not a ghost lane
-    if (ghost[u - a.n] != cv) continue;
+    if ((kPairs ? __ldcg(ghost + (u - a.n)) : ghost[u - a.n]) != cv) continue;
     if (!own.have) {
       own.gv = gid[r];
       if (a.recolor_degrees) own.dv = deg[r];
@@ -159,7 +171,7 @@ __device__ __forceinline__ bool collides(const Args& a, const int32_t* lanes, in
   return false;
 }
 
-template <int kMode>
+template <int kMode, bool kPairs>
 __global__ void __launch_bounds__(kThreads) fused_round_kernel(const Args a) {
   constexpr bool kOneHop = kMode != kPD2;
   constexpr bool kTwoHop = kMode != kD1;
@@ -176,6 +188,18 @@ __global__ void __launch_bounds__(kThreads) fused_round_kernel(const Args a) {
     const int j = static_cast<int>(i - p * (a.g + 1));
     a.tab[p * n_tab + a.n + j] = j < a.g ? a.ghost[p * a.ghost_ps + j] : 0;
   }
+  if (kPairs) {
+    grid.sync();
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+         i < a.n_parts * static_cast<int64_t>(a.c); i += stride) {
+      const int64_t p = i / a.c;
+      const int j = static_cast<int>(i - p * a.c);
+      const int32_t slot = a.pair_slots[p * a.slots_ps + j];
+      if (static_cast<uint32_t>(slot) < static_cast<uint32_t>(a.g))
+        a.tab[p * n_tab + a.n + slot] = a.pair_colors[p * a.pcolors_ps + j];
+    }
+    grid.sync();
+  }
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int64_t p = t / tiles;
     const int r = static_cast<int>(t - p * tiles) * kThreads + threadIdx.x;
@@ -186,8 +210,10 @@ __global__ void __launch_bounds__(kThreads) fused_round_kernel(const Args a) {
       bool v_any = false;
       if (cv > 0) {                          // an uncolored row collides with nothing
         Own own;
-        if (kOneHop) found += detect_row(a, a.adj + row * a.w, a.w, p, r, cv, own, v_any);
-        if (kTwoHop) found += detect_row(a, a.two_hop + row * a.h2, a.h2, p, r, cv, own, v_any);
+        if (kOneHop)
+          found += detect_row<kPairs>(a, a.adj + row * a.w, a.w, p, r, cv, own, v_any);
+        if (kTwoHop)
+          found += detect_row<kPairs>(a, a.two_hop + row * a.h2, a.h2, p, r, cv, own, v_any);
       }
       lost = (v_any && a.boundary[p * a.boundary_ps + r] != 0) ? 1 : 0;
       const int32_t c = lost ? 0 : cv;
@@ -266,9 +292,9 @@ __global__ void __launch_bounds__(kThreads) fused_round_kernel(const Args a) {
   }
 }
 
-template <int kMode>
+template <int kMode, bool kPairs>
 int launch(const Args& args, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(&fused_round_kernel<kMode>);
+  const void* fn = reinterpret_cast<const void*>(&fused_round_kernel<kMode, kPairs>);
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -293,8 +319,9 @@ int launch(const Args& args, cudaStream_t stream) {
 }  // namespace
 
 // problem: 0 = d1, 1 = d2, 2 = pd2. Row arrays (colors, is_boundary), the
-// ghosts and the two tables (deg, gid; one shared stride) may be strided
-// over the part axis with a contiguous row axis. adj (P, N, W) and
+// ghosts, the pairs (pair_slots, pair_colors; (P, C), each its own stride;
+// null pair_slots = no pairs) and the two tables (deg, gid; one shared
+// stride) may be strided over the part axis with a contiguous row axis. adj (P, N, W) and
 // two_hop (P, N, H2) are contiguous; two_hop is not read for d1. The
 // scratch tab (P, N+G+1), newc and base (P, N) are contiguous and need no
 // initial values; remaining (2, P), lose_ghost (P, G) and count (P,) must
@@ -306,10 +333,12 @@ extern "C" int fused_round_launch(const void* adj, const void* two_hop,
                                   const void* ghost, long long ghost_ps,
                                   const void* deg, const void* gid, long long tab_ps,
                                   const void* boundary, long long boundary_ps,
+                                  const void* pair_slots, long long slots_ps,
+                                  const void* pair_colors, long long pcolors_ps,
                                   void* tab, void* newc, void* base, void* remaining,
                                   void* out_colors, void* lose_v, void* lose_ghost,
                                   void* count, int n_parts, int n, int g, int w, int h2,
-                                  int problem, int recolor_degrees, int max_iters,
+                                  int c, int problem, int recolor_degrees, int max_iters,
                                   void* stream) {
   if (n_parts == 0 || n == 0) return 0;
   Args a;
@@ -324,6 +353,10 @@ extern "C" int fused_round_launch(const void* adj, const void* two_hop,
   a.ghost_ps = ghost_ps;
   a.tab_ps = tab_ps;
   a.boundary_ps = boundary_ps;
+  a.pair_slots = static_cast<const int32_t*>(pair_slots);
+  a.pair_colors = static_cast<const int32_t*>(pair_colors);
+  a.slots_ps = slots_ps;
+  a.pcolors_ps = pcolors_ps;
   a.tab = static_cast<int32_t*>(tab);
   a.newc = static_cast<int32_t*>(newc);
   a.base = static_cast<int32_t*>(base);
@@ -337,13 +370,15 @@ extern "C" int fused_round_launch(const void* adj, const void* two_hop,
   a.g = g;
   a.w = w;
   a.h2 = h2;
+  a.c = c;
   a.max_iters = max_iters;
   a.recolor_degrees = recolor_degrees != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pairs = pair_slots != nullptr;
   switch (problem) {
-    case kD1: return launch<kD1>(a, s);
-    case kD2: return launch<kD2>(a, s);
-    case kPD2: return launch<kPD2>(a, s);
+    case kD1: return pairs ? launch<kD1, true>(a, s) : launch<kD1, false>(a, s);
+    case kD2: return pairs ? launch<kD2, true>(a, s) : launch<kD2, false>(a, s);
+    case kPD2: return pairs ? launch<kPD2, true>(a, s) : launch<kPD2, false>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

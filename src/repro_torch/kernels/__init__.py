@@ -3,10 +3,14 @@
 * ``vb_bit``       -- windowed forbidden-bitmask color assignment
 * ``conflict``     -- Algorithm-4 conflict detection over ELL rows
 * ``d2_forbidden`` -- net-based two-hop (distance-2) color assignment
-* ``fused_round``  -- one whole round (detect, zero losers, recolor fixed
-  point) in one cooperative launch
+* ``fused_round``  -- one whole round (optional pair scatter into the
+  ghosts, detect, zero losers, recolor fixed point) in one cooperative
+  launch
+* ``pair_scatter`` -- ``(slot, value)`` pairs stored into slot tables (the
+  receive step of the sparse exchanges)
 
 Each kernel ships ``csrc/<name>.cu``, a wrapper in ``kernels/<name>.py``
+(``pair_scatter``: ``kernels/scatter.py``, as in ``repro``)
 with its plain-PyTorch version beside it, and a launch counter on the
 wrapper.  A wrapper takes the plain version only for tensors that lie on
 the CPU; for CUDA tensors it launches the kernel or raises.

@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "random_part", "random_stacked", "random_ext",
-           "random_round"]
+__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "SCATTER_SHAPES", "random_part",
+           "random_stacked", "random_ext", "random_round", "random_pairs", "round_pairs"]
 
 # (rows, lanes, ghosts) of tests/test_kernels.py.
 SHAPES = [(16, 3, 8), (100, 7, 40), (256, 1, 1), (515, 12, 200), (64, 33, 9)]
@@ -18,6 +18,13 @@ D2_SHAPES = [(16, 3, 8), (64, 5, 30), (130, 9, 60)]
 # counts, and one ghost slot that holds no real ghost (a single part's).
 ROUND_SHAPES = [(100, 7, 40, True), (515, 5, 200, True), (256, 4, 1, False),
                 (1000, 3, 64, True)]
+# (rows, table width S, pairs per row C, real pairs per row or None =
+# random) of the pair-scatter cases: the (S, C) of
+# tests/test_kernels.py::test_pair_scatter_sweep over 1 to 64 rows, C up
+# to S, a case with no real pair and one with every slot real.
+SCATTER_SHAPES = [(1, 16, 5, None), (3, 100, 100, None), (4, 257, 64, None),
+                  (2, 512, 1, None), (64, 300, 300, None), (5, 40, 40, 0),
+                  (7, 33, 33, 33)]
 
 
 def random_part(n, w, n_ghost, n_colors, seed, deg_max=50):
@@ -70,3 +77,41 @@ def random_round(n, w, g, seed, parts, *, real_ghosts=True):
     if not real_ghosts:
         ghost[:] = 0
     return adj, two_hop, tab[:, :n].copy(), ghost, deg, gid, bd
+
+
+def random_pairs(rows, s, c, seed, k=None):
+    """``(table (rows, s), slots (rows, c), values (rows, c))`` int32.
+
+    Each row draws as ``tests/test_kernels.py::test_pair_scatter_sweep``
+    draws its one row (row ``r`` from ``seed + 1000 * r``): ``k`` real
+    pairs (random in ``0..min(s, c)`` unless given) with unique slots, the
+    rest padding at the sentinel slot ``s``; the pairs are then shuffled,
+    so padding sits anywhere in the row.
+    """
+    tabs, slots, vals = [], [], []
+    for r in range(rows):
+        rng = np.random.default_rng(seed + 1000 * r)
+        tabs.append(rng.integers(0, 99, s).astype(np.int32))
+        kr = int(rng.integers(0, min(s, c) + 1)) if k is None else k
+        sl = np.full(c, s, np.int32)
+        sl[:kr] = rng.permutation(s)[:kr]
+        slots.append(rng.permutation(sl))
+        vals.append(rng.integers(1, 50, c).astype(np.int32))
+    return np.stack(tabs), np.stack(slots), np.stack(vals)
+
+
+def round_pairs(g, seed, parts):
+    """``(pair_slots, pair_colors)``, ``(parts, C)`` int32 ghost updates for
+    a round with ``g`` ghost slots, each part drawn as
+    ``tests/test_kernels.py::test_fused_round_pairs_d1_d2`` draws its one
+    part (part ``p`` from ``seed + 1000 * p``): capacity ``C = max(g // 2,
+    1)``, ``C // 2`` real pairs on unique slots, the rest at the sentinel
+    slot ``g``."""
+    c = max(g // 2, 1)
+    slots = np.full((parts, c), g, np.int32)
+    vals = np.empty((parts, c), np.int32)
+    for p in range(parts):
+        rng = np.random.default_rng(seed + 1000 * p)
+        slots[p, :c // 2] = rng.permutation(g)[:c // 2]
+        vals[p] = rng.integers(1, 7, c)
+    return slots, vals

@@ -1,17 +1,18 @@
 """``fused_round`` — one whole inner round of the coloring loop in one launch.
 
 The CUDA kernel (``csrc/fused_round.cu``) replaces the TPU kernel
-``repro/kernels/fused_round.py::fused_round``: Alg-4 owned-vs-ghost
+``repro/kernels/fused_round.py::fused_round``: the optional ``(slot,
+color)`` pairs scattered into the ghost colors, Alg-4 owned-vs-ghost
 detection over the one-hop and/or two-hop blocks, the losers zeroed, and
 their recolor fixed point, for every part of the stacked axis in one
-cooperative launch.  The TPU kernel's optional ``(slot, color)`` pair
-scatter is not ported yet: it belongs to the sparse exchanges
-(ROADMAP.md).  :func:`fused_round_ref` is the plain version, the
-counterpart of ``repro/kernels/ref.py::fused_round_ref``: the decomposed
-``_detect_part`` → zero losers → ``_recolor_part`` composition on the
-``reference`` backend.  The ``cuda_fused`` backend
+cooperative launch.  :func:`fused_round_ref` is the plain version, the
+counterpart of ``repro/kernels/ref.py::fused_round_ref``:
+``pair_scatter_ref`` into the ghosts, then the decomposed ``_detect_part``
+→ zero losers → ``_recolor_part`` composition on the ``reference``
+backend.  The ``cuda_fused`` backend
 (``repro_torch.core.backend.CudaFusedBackend``) runs every d1, d2 and pd2
-round through :func:`fused_round`.
+round through :func:`fused_round`; like ``repro``'s ``pallas_fused``, it
+passes no pairs.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core.distributed import _detect_part, _recolor_part
 from repro_torch.core.local import MAX_ITERS_D1, MAX_ITERS_D2
 from repro_torch.kernels import check_tensor, on_cpu
 from repro_torch.kernels.build import load
+from repro_torch.kernels.scatter import pair_scatter_ref
 
 __all__ = ["fused_round", "fused_round_ref"]
 
@@ -32,8 +34,8 @@ _PROBLEM_CODES = {"d1": 0, "d2": 1, "pd2": 2}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
-_ARGTYPES = ([_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _I64]
-             + [_P] * 8 + [_INT] * 8 + [_P])
+_ARGTYPES = ([_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64]
+             + [_P] * 8 + [_INT] * 9 + [_P])
 
 
 def _check_problem(problem: str, two_hop_cidx) -> None:
@@ -44,10 +46,19 @@ def _check_problem(problem: str, two_hop_cidx) -> None:
         raise ValueError(f"problem={problem!r} requires two_hop_cidx")
 
 
+def _check_pairs(pair_slots, pair_colors) -> None:
+    if (pair_slots is None) != (pair_colors is None):
+        raise ValueError("pair_slots and pair_colors come together")
+
+
 def fused_round_ref(adj_cidx, colors, ghost, deg_tab, gid_tab, is_boundary,
-                    two_hop_cidx=None, *, problem="d1", recolor_degrees=True):
+                    two_hop_cidx=None, pair_slots=None, pair_colors=None, *,
+                    problem="d1", recolor_degrees=True):
     """Plain version of :func:`fused_round`."""
     _check_problem(problem, two_hop_cidx)
+    _check_pairs(pair_slots, pair_colors)
+    if pair_slots is not None:
+        ghost = pair_scatter_ref(ghost, pair_slots, pair_colors)
     st = {"adj_cidx": adj_cidx, "deg_tab": deg_tab, "gid_tab": gid_tab,
           "is_boundary": is_boundary.to(torch.bool),
           # The reference backend's d2 recolor never reads the extended
@@ -68,12 +79,19 @@ def fused_round(
     gid_tab: torch.Tensor,        # (P, N+G+1) int32 global ids
     is_boundary: torch.Tensor,    # (P, N) bool
     two_hop_cidx: torch.Tensor | None = None,   # (P, N, H2) int32, d2/pd2
+    pair_slots: torch.Tensor | None = None,     # (P, C) int32 ghost positions
+    pair_colors: torch.Tensor | None = None,    # (P, C) int32 their colors
     *,
     problem: str = "d1",
     recolor_degrees: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One round: detect → zero losers → speculative recolor to each part's
-    fixed point (at most 512 iterations for d1, 1024 for d2 and pd2).
+    """One round: [pairs into the ghosts →] detect → zero losers →
+    speculative recolor to each part's fixed point (at most 512 iterations
+    for d1, 1024 for d2 and pd2).
+
+    With pairs, ``ghost[p, pair_slots[p, j]] = pair_colors[p, j]`` is
+    applied first; a slot outside ``[0, G)`` is padding and is dropped,
+    and the real slots of one part must be unique.
 
     Returns ``(new_colors (P, N) int32, lose_v (P, N) bool, lose_ghost
     (P, G) bool, n_conflicts (P,) int32)``, exactly :func:`fused_round_ref`.
@@ -81,10 +99,12 @@ def fused_round(
     ``[0, N+G+1)``.
     """
     _check_problem(problem, two_hop_cidx)
+    _check_pairs(pair_slots, pair_colors)
     th = two_hop_cidx if problem != "d1" else None
     args = [adj_cidx, colors, ghost, deg_tab, gid_tab, is_boundary]
-    if on_cpu(*args, *([th] if th is not None else [])):
-        return fused_round_ref(*args, th, problem=problem,
+    optional = [x for x in (th, pair_slots, pair_colors) if x is not None]
+    if on_cpu(*args, *optional):
+        return fused_round_ref(*args, th, pair_slots, pair_colors, problem=problem,
                                recolor_degrees=recolor_degrees)
     p, n, w = adj_cidx.shape
     g = ghost.shape[-1]
@@ -100,6 +120,11 @@ def fused_round(
     tps = check_tensor(deg_tab, "deg_tab", torch.int32, (p, t))
     if check_tensor(gid_tab, "gid_tab", torch.int32, (p, t)) != tps:
         raise ValueError("gid_tab: must share deg_tab's part stride")
+    c, sps, pcps = 0, 0, 0
+    if pair_slots is not None:
+        c = pair_slots.shape[-1]
+        sps = check_tensor(pair_slots, "pair_slots", torch.int32, (p, c))
+        pcps = check_tensor(pair_colors, "pair_colors", torch.int32, (p, c))
     dev = adj_cidx.device
     i32 = dict(dtype=torch.int32, device=dev)
     tab = torch.empty((p, t), **i32)
@@ -117,9 +142,11 @@ def fused_round(
              colors.data_ptr(), cps, ghost.data_ptr(), gps,
              deg_tab.data_ptr(), gid_tab.data_ptr(), tps,
              is_boundary.data_ptr(), bps,
+             pair_slots.data_ptr() if pair_slots is not None else None, sps,
+             pair_colors.data_ptr() if pair_colors is not None else None, pcps,
              tab.data_ptr(), newc.data_ptr(), base.data_ptr(), remaining.data_ptr(),
              out_colors.data_ptr(), lose_v.data_ptr(), lose_g.data_ptr(),
-             count.data_ptr(), p, n, g, w, h2, _PROBLEM_CODES[problem],
+             count.data_ptr(), p, n, g, w, h2, c, _PROBLEM_CODES[problem],
              int(recolor_degrees), max_iters,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -3,19 +3,26 @@
   PYTHONPATH=src python -m repro_torch.launch.color --graph hex:24,24,24 \
       --parts 8 [--problem d1|d1_2gl|d2|pd2] \
       [--backend cuda|cuda_fused|reference] [--device cuda|cpu] \
+      [--exchange all_gather|halo|delta|sparse_delta|hier_delta] \
+      [--strategy block|edge_balanced|random] [--node-size L] \
       [--no-recolor-degrees] [--repeat 16]
 
 Graph specs: hex:NX,NY,NZ | grid:NX,NY | rmat:SCALE,EF | rgg:N,R |
 myc:K | er:N,DEG | bip:ROWS,COLS,NNZ (with --problem pd2 for the Jacobian
 workload)
 
-Colors on the ``simulate`` engine (every part stacked on one device) with
-the ``all_gather`` exchange.  --problem selects distance-1, distance-1
-with two ghost layers, distance-2 or partial distance-2 (all but d1
-partition with a second ghost layer).  --backend selects the plain
-PyTorch ``reference``, the chained hand-written ``cuda`` kernels or
-``cuda_fused`` (one kernel per round); --device the device (the CPU runs
-the kernels' plain versions).
+Colors on the ``simulate`` engine (every part stacked on one device).
+--problem selects distance-1, distance-1 with two ghost layers,
+distance-2 or partial distance-2 (all but d1 partition with a second
+ghost layer).  --backend selects the plain PyTorch ``reference``, the
+chained hand-written ``cuda`` kernels or ``cuda_fused`` (one kernel per
+round); --device the device (the CPU runs the kernels' plain versions).
+--exchange selects the ghost exchange; the reported comm/round is its
+measured payload (``halo`` needs a slab partition and raises
+``ValueError`` otherwise).  The sparse exchanges apply received pairs
+with the ``pair_scatter`` kernel when --backend is a kernel backend.
+--strategy selects the partitioner and --node-size L a two-level
+partition of L parts per node (0 = flat; pairs with ``hier_delta``).
 
 --repeat N is the timestep mode (the paper's motivating workload): the
 same topology is recolored N times through one plan, whose device state
@@ -32,10 +39,12 @@ import torch
 
 from repro_torch.core.backend import list_backends
 from repro_torch.core.distributed import PROBLEMS
+from repro_torch.core.exchange import EXCHANGES, list_exchanges
 from repro_torch.core.plan import ColoringPlan
 from repro_torch.core.validate import is_proper_d1, is_proper_d2, is_proper_pd2
 from repro_torch.graph import generators as gen
-from repro_torch.graph.partition import partition_graph
+from repro_torch.graph.partition import partition_graph, two_level_partition
+from repro_torch.launch.mesh import factor_parts
 
 
 def make_graph(spec: str):
@@ -58,6 +67,26 @@ VALIDATORS = {
 }
 
 
+def make_partition(g, args):
+    """Flat or two-level partition per ``--node-size`` (0 = flat)."""
+    needs_l2 = args.problem != "d1"
+    if args.node_size:
+        n_nodes, node_size = factor_parts(args.parts, args.node_size)
+        return two_level_partition(g, n_nodes, node_size,
+                                   strategy=args.strategy,
+                                   second_layer=needs_l2)
+    return partition_graph(g, args.parts, strategy=args.strategy,
+                           second_layer=needs_l2)
+
+
+def make_exchange(args):
+    """The ``--exchange`` strategy; the sparse exchanges scatter received
+    pairs with the ``pair_scatter`` kernel on a kernel backend."""
+    if args.exchange in ("sparse_delta", "hier_delta") and args.backend != "reference":
+        return EXCHANGES[args.exchange](scatter="cuda")
+    return args.exchange
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -70,6 +99,12 @@ def main(argv=None) -> None:
     ap.add_argument("--problem", default="d1", choices=PROBLEMS)
     ap.add_argument("--backend", default="cuda", choices=list_backends())
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--exchange", default="all_gather", choices=list_exchanges())
+    ap.add_argument("--strategy", default="block",
+                    choices=["block", "edge_balanced", "random"])
+    ap.add_argument("--node-size", type=int, default=0, metavar="L",
+                    help="two-level partition: L parts per node "
+                         "(0 = flat; pairs with --exchange hier_delta)")
     ap.add_argument("--no-recolor-degrees", action="store_true")
     ap.add_argument("--repeat", type=int, default=1, metavar="N",
                     help="timestep mode: recolor the topology N times "
@@ -79,11 +114,12 @@ def main(argv=None) -> None:
     g = make_graph(args.graph)
     print(f"[color] graph {g.name}: n={g.n} m={g.num_edges} "
           f"maxdeg={g.max_degree}")
-    pg = partition_graph(g, args.parts, second_layer=args.problem != "d1")
+    pg = make_partition(g, args)
     t0 = time.time()
     plan = ColoringPlan(pg, problem=args.problem,
                         recolor_degrees=not args.no_recolor_degrees,
-                        backend=args.backend, device=args.device)
+                        backend=args.backend, exchange=make_exchange(args),
+                        device=args.device)
     times = []
     for _ in range(max(args.repeat, 1)):
         t1 = time.perf_counter()
@@ -107,6 +143,9 @@ def main(argv=None) -> None:
           f"(device={plan.device})")
     print(f"[color] comm_bytes_by_round="
           f"{[int(b) for b in res.comm_bytes_by_round]}")
+    if res.comm_bytes_intra:
+        print(f"[color] comm_bytes intra-node={res.comm_bytes_intra}B "
+              f"inter-node={res.comm_bytes_inter}B")
     if not ok:
         raise SystemExit(1)
 

@@ -181,7 +181,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         t_dist.color_distributed(tpg, engine="shard_map", device="cpu")
     with pytest.raises(ValueError, match="unknown exchange"):
-        ColoringPlan(tpg, exchange="sparse_delta", device="cpu")
+        ColoringPlan(tpg, exchange="rdma", device="cpu")
     with pytest.raises(NotImplementedError):
         LocalBackend().color_d2(*([None] * 7), partial_d2=False,
                                 recolor_degrees=True)

@@ -14,11 +14,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._testing import (
-    D2_SHAPES, ROUND_SHAPES, SHAPES, random_ext, random_round, random_stacked,
+    D2_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext, random_pairs,
+    random_round, random_stacked, round_pairs,
 )
 from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
 from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
 from repro_torch.kernels.fused_round import fused_round, fused_round_ref
+from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
 from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
 
 
@@ -96,6 +98,41 @@ def test_fused_round_kernel_matches_plain(card, n, w, g, real, parts, problem, r
     before = fused_round.launches
     got = fused_round(adj, colors, ghost, deg, gid, bd, th, **kw)
     want = fused_round_ref(adj, colors, ghost, deg, gid, bd, th, **kw)
+    torch.cuda.synchronize()
+    assert fused_round.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,s,c,k", SCATTER_SHAPES)
+def test_pair_scatter_kernel_matches_plain(card, rows, s, c, k):
+    table, slots, vals = _t(*random_pairs(rows, s, c, rows + s + c, k=k), device=card)
+    before = pair_scatter.launches
+    got = pair_scatter(table, slots, vals)
+    want = pair_scatter_ref(table, slots, vals)
+    torch.cuda.synchronize()
+    assert pair_scatter.launches == before + 1
+    assert torch.equal(got, want)
+    # A table strided over its rows (every other row of a wider one).
+    wide = torch.zeros((rows, 2 * s), dtype=torch.int32, device=card)
+    wide[:, :s] = table
+    assert torch.equal(pair_scatter(wide[:, :s], slots, vals), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,g,real", ROUND_SHAPES)
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("problem", ["d1", "d2", "pd2"])
+def test_fused_round_pairs_kernel_matches_plain(card, n, w, g, real, parts, problem):
+    adj, th, colors, ghost, deg, gid, bd = _t(
+        *random_round(n, w, g, n + parts, parts, real_ghosts=real), device=card)
+    slots, vals = _t(*round_pairs(g, n + 11, parts), device=card)
+    th = None if problem == "d1" else th
+    before = fused_round.launches
+    got = fused_round(adj, colors, ghost, deg, gid, bd, th, slots, vals, problem=problem)
+    want = fused_round_ref(adj, colors, ghost, deg, gid, bd, th, slots, vals,
+                           problem=problem)
     torch.cuda.synchronize()
     assert fused_round.launches == before + 1
     for a, b in zip(got, want):
