@@ -10,13 +10,15 @@ order it:
 1. prints the card's name and power limit (``nvidia-smi``) and builds
    every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once);
-2. holds each kernel to exact equality with its plain PyTorch version on
-   the same CUDA tensors, on random inputs (the shapes of
+2. holds each coloring kernel to exact equality with its plain PyTorch
+   version on the same CUDA tensors, on random inputs (the shapes of
    ``tests/test_kernels.py`` with 1 and 3 parts, both ``recolor_degrees``
    and ``partial_d2`` settings, cases without ghosts and with one ghost
    slot that holds no real ghost, ragged row counts; ``pair_scatter`` on
    batches of 1 to 64 rows with padding, up to ``S`` pairs and none real;
-   ``fused_round`` with ``(slot, color)`` pairs for d1 and d2);
+   ``fused_round`` with ``(slot, color)`` pairs for d1 and d2), and
+   ``flash_attention`` within 2e-5 (float32) and 2e-2 (bf16) of its plain
+   version on the card tests' shapes (``[flash]``);
 3. generates the graph once and drives every path of the port on it, each
    with the kernels' launch counts set to 0 just before it and read just
    after it (and around each request), each kernel > 0 on the paths that
@@ -48,10 +50,22 @@ order it:
    ``PERF.md``, on d2's; ``pair_scatter`` on the first ``sparse_delta``
    round's, beside the one PyTorch call that computes the same function,
    ``torch.scatter``), holds them equal, computes each kernel's bound
-   from the bytes these inputs need it to move, and prints one
-   ``{"kernels": [...]}`` line with each kernel's launches summed over the
-   paths;
-5. prints ``{"ok": true, "device": {...}}`` as the last line.
+   from the bytes these inputs need it to move;
+5. frees the coloring state and serves TinyLlama-1.1B at full width
+   (random bf16 weights from ``--seed``) through ``ServeEngine``: a batch
+   of four prompts (1,024, 700, 512, 64 tokens; 32 new) and one 16,384
+   token request (chunked attention; 8 new), printing prefill and decode
+   times, tokens per second, host syncs per step and peak memory, and
+   profiling a decode step (``[serve]``); launches ``flash_attention``
+   (``kernels.ops``) on layer 0's prefill q, k, v of both as its path,
+   holds it (and SDPA) against the model's own attention and, at 1,024,
+   its plain version (each element within 2e-2, each row within 2e-2 of
+   its norm), and times it beside SDPA against its operations bound; then
+   checks that a float32 copy of the model generates exactly the
+   teacher-forced argmax of ``forward``;
+6. prints one ``{"kernels": [...]}`` line with each kernel's launches
+   summed over the paths, the ``nvidia-smi`` line, and
+   ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -69,6 +83,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate, data sheet
+BF16_TOL = 2e-2                 # bf16 rounds the output: rtol = atol
+# On the served path's q, k, v also: every output row (dh values of one
+# query and head) within ROW_TOL of the reference row, relative to that
+# row's 2-norm.  A row's elements shrink as 1/sqrt(keys seen), so a fixed
+# atol of BF16_TOL passes a dropped key tile in late rows; the row's own
+# norm scales with it.  bf16's unit roundoff is 2**-8 = 3.9e-3, and two
+# attentions that round P and the output at different points differ by a
+# few units in a row's norm.
+ROW_TOL = 2e-2
+# The [serve] phase: TinyLlama-1.1B at full width, random weights from --seed.
+SERVE_ARCH = "tinyllama_1_1b"
+SERVE_PROMPTS = (1024, 700, 512, 64)    # one batch of 4, left-padded to 1,024
+SERVE_NEW = 32
+LONG_PROMPT = 16384                     # above attn_chunk_threshold: chunked attention
+LONG_NEW = 8
 VALIDATORS = {"d1": "is_proper_d1", "d1_2gl": "is_proper_d1",
               "d2": "is_proper_d2", "pd2": "is_proper_pd2"}
 
@@ -88,12 +118,13 @@ def wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from repro_torch.kernels.conflict import conflict_detect
     from repro_torch.kernels.d2_forbidden import d2_assign
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_round import fused_round
     from repro_torch.kernels.scatter import pair_scatter
     from repro_torch.kernels.vb_bit import vb_bit_assign
 
     return {k.__name__: k for k in (vb_bit_assign, conflict_detect, d2_assign,
-                                    fused_round, pair_scatter)}
+                                    fused_round, pair_scatter, flash_attention)}
 
 
 def to_device(arrays, device):
@@ -109,6 +140,50 @@ def random_inputs(n, w, g, n_colors, seed, parts, device):
     _, stacked = random_stacked(n, w, g, n_colors, seed, parts)
     keys = ("adj", "tab", "base", "active", "deg", "gid", "bd")
     return dict(zip(keys, to_device(stacked, device)))
+
+
+def check_close(name, got, want, tol) -> float:
+    """``got`` within ``rtol = atol = tol`` of ``want`` (compared in fp32);
+    returns the max absolute difference."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: differs by up to {err} (rtol = atol = {tol})")
+    return err
+
+
+def check_attention(name, got, want) -> dict:
+    """Attention output ``got`` against ``want`` (B, L, H, dh): elementwise
+    within ``rtol = atol = BF16_TOL``, and every row within ``ROW_TOL`` of
+    ``want``'s row in the 2-norm, relative to that row's norm (which bounds
+    each element of the row too).  Returns the max abs error, the max row
+    error, mean |want| and how many elements an absolute 1e-3 (with rtol
+    BF16_TOL) would fail."""
+    import torch
+
+    check_close(name, got, want, BF16_TOL)
+    got, want = got.float(), want.float()
+    diff = got - want
+    row = (diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+    stats = {"max_abs_err": diff.abs().max().item(), "max_row_err": row,
+             "mean_abs": want.abs().mean().item(),
+             "beyond_1e-3": int((diff.abs() > 1e-3 + BF16_TOL * want.abs()).sum()),
+             "elements": want.numel()}
+    if not row <= ROW_TOL:
+        raise AssertionError(f"{name}: a row differs by {row:.4g} of its norm "
+                             f"(limit {ROW_TOL})")
+    return stats
+
+
+def fmt_attention(stats) -> str:
+    return (f"max abs err {stats['max_abs_err']:.4g} (mean |o| {stats['mean_abs']:.4g}), "
+            f"max row err {stats['max_row_err']:.4g} of the row's norm (limit {ROW_TOL}); "
+            f"{stats['beyond_1e-3']} of {stats['elements']} elements beyond "
+            f"rtol {BF16_TOL} + atol 1e-3")
 
 
 def check_equal(name, got, want) -> int:
@@ -131,8 +206,8 @@ def check_equal(name, got, want) -> int:
 def kernel_vs_plain_grid(device) -> dict[str, int]:
     """Random cases of every kernel against its plain version; case counts."""
     from repro_torch.kernels._testing import (
-        D2_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext, random_pairs,
-        random_round, round_pairs,
+        D2_SHAPES, FLASH_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext,
+        random_pairs, random_round, round_pairs,
     )
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
     from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
@@ -191,7 +266,37 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
         check_equal(f"pair_scatter {rows, s, c, k}", pair_scatter(*args),
                     pair_scatter_ref(*args))
         cases["pair_scatter"] += 1
+    t0 = time.perf_counter()
+    worst = flash_grid(device)
+    cases["flash_attention"] = sum(n for n, _ in worst.values())
+    log(f"[flash] {len(FLASH_SHAPES)} shapes x (float32, bfloat16) in "
+        f"{time.perf_counter() - t0:.1f} s: the kernel is within 2e-5 (float32) and "
+        f"{BF16_TOL} (bfloat16) of its fp32 plain version; max abs err "
+        + ", ".join(f"{dt} {err:.3g}" for dt, (_, err) in worst.items()))
     return cases
+
+
+def flash_grid(device) -> dict:
+    """``flash_attention`` against its plain version on the card tests'
+    shapes, each in float32 (2e-5) and bfloat16 (2e-2, against the fp32
+    plain version of the rounded inputs); returns {dtype: (cases, max err)}."""
+    import torch
+
+    from repro_torch.kernels._testing import FLASH_SHAPES, random_qkv
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    worst = {}
+    for b, lq, lk, hq, hkv, dh, causal, bq, bk in FLASH_SHAPES:
+        arrays = to_device(random_qkv(b, lq, lk, hq, hkv, dh, lq + dh), device)
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, BF16_TOL)):
+            q, k, v = (t.to(dtype) for t in arrays)
+            err = check_close(
+                f"flash_attention {b, lq, lk, hq, hkv, dh, causal} {dtype}",
+                flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk),
+                flash_attention_ref(q.float(), k.float(), v.float(), causal=causal), tol)
+            n, e = worst.get(str(dtype), (0, 0.0))
+            worst[str(dtype)] = (n + 1, max(e, err))
+    return worst
 
 
 def time_ms(fn, reps: int, batches: int = 3) -> float:
@@ -216,6 +321,21 @@ def time_ms(fn, reps: int, batches: int = 3) -> float:
     return float(np.median(times))
 
 
+def count_syncs(fn):
+    """Run ``fn`` once; returns (its result, the host syncs it made)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
 def profile_request(label, request) -> None:
     """Where one request's time goes: host syncs, device busy share, top
     device activities.  Runs the request twice: once counting syncs, once
@@ -224,15 +344,7 @@ def profile_request(label, request) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            request()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    _, syncs = count_syncs(request)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -570,6 +682,239 @@ def make_exchange(name, scatter=None):
     return EXCHANGES[name](scatter=scatter) if scatter else EXCHANGES[name]()
 
 
+def leaves(tree):
+    """The tensors of a nested parameter dict."""
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def wall_s(fn):
+    """Host seconds of ``fn`` run to its end on the card; returns (result, s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_request(label, eng, prompts, n_new):
+    """Serve ``prompts`` on ``eng`` with ``n_new`` tokens each: prefill and
+    decode times, tokens per second, host syncs per decode step, peak
+    memory, and one decode step under the profiler.  Returns the tokens."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.engine import pad_prompts
+
+    eng.generate(prompts, 1)                                   # warm-up
+    _, prefill_s = wall_s(lambda: eng.generate(prompts, 0))
+    torch.cuda.reset_peak_memory_stats()
+    outs, total_s = wall_s(lambda: eng.generate(prompts, n_new))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, syncs0 = count_syncs(lambda: eng.generate(prompts, 0))
+    _, syncs = count_syncs(lambda: eng.generate(prompts, n_new))
+    decode_s = total_s - prefill_s
+    n_tok = len(prompts) * n_new
+    log(f"[serve] {label}: prefill {prefill_s:.4f} s, decode {decode_s / n_new * 1e3:.3f} ms "
+        f"per step ({n_new} steps), {n_tok / total_s:.1f} tokens/s end to end, "
+        f"{n_tok / decode_s:.1f} tokens/s decoding; host syncs per decode step "
+        f"{(syncs - syncs0) / n_new:.2f} (prefill only: {syncs0}); peak "
+        f"{peak:.2f} GiB allocated")
+    toks = torch.from_numpy(pad_prompts(prompts, eng.batch)).to(eng.device)
+    with torch.inference_mode():
+        logits, cache = prefill(eng.params, eng.cfg, toks, max_len=toks.shape[1] + 2)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        decode_step(eng.params, eng.cfg, cur, cache)
+        profile_request(f"serve {label} decode step",
+                        lambda: decode_step(eng.params, eng.cfg, cur, cache))
+    return outs
+
+
+def layer0_qkv(params, cfg, toks):
+    """Layer 0's q, k, v for the prompt block ``toks``, as prefill's
+    ``qkv_project`` makes them."""
+    import torch
+
+    from repro_torch.models.layers import qkv_project, rms_norm
+    from repro_torch.models.transformer import _layer
+
+    bp = _layer(params["blocks"], 0)
+    h = rms_norm(params["embed"][toks.long()], bp["ln1"], cfg.norm_eps)
+    return qkv_project(bp["attn"], h, cfg, torch.arange(toks.shape[1], device=toks.device))
+
+
+def flash_bound(q, k, causal=True):
+    """(bound ms, "operations" or "bytes", flops, bytes) of one
+    ``flash_attention`` call: 4 dh flops per visible (query, key) pair over
+    the bf16 tensor-core rate, against q, k, v read and o written once."""
+    b, lq, hq, dh = q.shape
+    lk = k.shape[1]
+    if causal:      # query i sees keys 0..i (top-left)
+        n = min(lq, lk)
+        pairs = n * (n + 1) // 2 + max(lq - lk, 0) * lk
+    else:
+        pairs = lq * lk
+    flops = 4 * dh * b * hq * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
+def sdpa(q, k, v):
+    """The one PyTorch call computing ``flash_attention(causal=True)``: the
+    library yardstick (``library_ms``), used nowhere in the port."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True).transpose(1, 2)
+
+
+def flash_on_path(cfg, qkv, ledger, reps) -> dict:
+    """Launch ``kernels.ops.flash_attention`` on the served prompts' layer-0
+    q, k, v (counted as the flash path), hold each output against the
+    model's own attention (and, at the short shape, the plain version),
+    time kernel, plain version and SDPA, and return the kernel's measured
+    keys of its ``{"kernels": [...]}`` entry (at the first shape)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.models.layers import attention_chunked, attention_dense
+
+    ledger.start()
+    outs = {label: flash_attention(*t, causal=True) for label, t in qkv.items()}
+    torch.cuda.synchronize()
+    ledger.end("serve flash_attention (kernels.ops.flash_attention on layer 0's "
+               "prefill q, k, v)", ("flash_attention",))
+    entry = None
+    for label, (q, k, v) in qkv.items():
+        o = outs[label]
+        lq = q.shape[1]
+        pos = torch.arange(lq, device=q.device)
+        if lq > cfg.attn_chunk_threshold:
+            name = "attention_chunked"
+            model = attention_chunked(q, k, v, pos, pos, causal=True,
+                                      q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+        else:
+            name = "attention_dense"
+            model = attention_dense(q, k, v, pos, pos, causal=True)
+        vs_model = check_attention(f"flash_attention {label} vs the model's {name}", o, model)
+        del model
+        vs_sdpa = check_attention(f"SDPA {label} vs flash_attention", sdpa(q, k, v), o)
+        long = lq > cfg.attn_chunk_threshold
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 3 if long else reps)
+        library_ms = time_ms(lambda: sdpa(q, k, v), reps)
+        bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
+        msg = (f"[time] flash_attention {label} q {tuple(q.shape)} k {tuple(k.shape)} "
+               f"{q.dtype}: kernel {ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+               f"{bound_ms:.4f} ms ({flops} flop over 989 TFLOP/s, {nbytes} B over "
+               f"3.35 TB/s: bound by {bound_by}), {bound_ms / ms:.2%} of the bound; "
+               f"vs the model's {name}: {fmt_attention(vs_model)}; SDPA vs the kernel: "
+               f"{fmt_attention(vs_sdpa)}")
+        if long:
+            log(msg + "; the dense plain version (a 34 GB score matrix at 16,384) "
+                "is neither run nor timed")
+            continue
+        plain = flash_attention_ref(q, k, v, causal=True)
+        vs_plain = check_attention(f"flash_attention {label} vs its plain version", o, plain)
+        del plain
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                           max(reps // 4, 3))
+        log(msg + f"; plain {plain_ms:.4f} ms, vs plain: {fmt_attention(vs_plain)}")
+        if entry is None:
+            entry = {"max_abs_err": vs_plain["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    return entry
+
+
+def serve_phase(device, seed, cfg, ledger, reps) -> dict:
+    """Serve ``cfg`` (bf16) through ``ServeEngine``: the batch of four, then
+    the long request; the kernel on their layer-0 q, k, v; then the float32
+    check at the same width.  Returns ``flash_attention``'s measured keys."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import forward, init_params, prefill
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import pad_prompts
+
+    rng = np.random.default_rng(seed)
+    batch = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in SERVE_PROMPTS]
+    long = [rng.integers(1, cfg.vocab_size, LONG_PROMPT).astype(np.int32)]
+    if LONG_PROMPT <= cfg.attn_chunk_threshold:
+        raise AssertionError("the long request must take the chunked attention")
+    requests = ((f"{len(batch)}x{max(SERVE_PROMPTS)}", batch, SERVE_NEW),
+                (f"1x{LONG_PROMPT}", long, LONG_NEW))
+
+    torch.cuda.empty_cache()
+    params, init_s = wall_s(lambda: init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed)))
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"[serve] {cfg.name} ({cfg.dtype}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q heads, {cfg.n_kv_heads} kv heads, dh {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} random parameters (seed "
+        f"{seed}) in {init_s:.2f} s")
+    ledger.start()
+    qkv = {}
+    for label, prompts, n_new in requests:
+        eng = ServeEngine(cfg, params, batch=len(prompts),
+                          max_len=max(map(len, prompts)) + n_new, device=device)
+        outs = serve_request(label, eng, prompts, n_new)
+        log(f"[serve] {label}: first tokens {[o[:4] for o in outs]}")
+        with torch.inference_mode():
+            toks = torch.from_numpy(pad_prompts(prompts, len(prompts))).to(device)
+            qkv[label] = layer0_qkv(params, cfg, toks)
+    ledger.end(f"serve {cfg.dtype} (attention in plain PyTorch, as in repro)", ())
+    del params
+    with torch.inference_mode():
+        entry = flash_on_path(cfg, qkv, ledger, reps)
+    del qkv
+
+    # The float32 check at the same width: the same draws, not rounded.
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=device).manual_seed(seed))
+    (label, prompts, n_new), (long_label, _, long_new) = requests
+    eng = ServeEngine(cfg32, params, batch=len(prompts),
+                      max_len=max(map(len, prompts)) + n_new, device=device)
+    outs, s32 = wall_s(lambda: eng.generate(prompts, n_new))
+    toks = pad_prompts(prompts, len(prompts))
+    lp = toks.shape[1]
+    with torch.inference_mode():
+        for i, out in enumerate(outs):
+            row = torch.from_numpy(np.concatenate([toks[i], out]).astype(np.int32))
+            logits, _ = forward(params, cfg32, row[None].to(device))
+            want = torch.argmax(logits[0, lp - 1:lp - 1 + n_new], dim=-1).tolist()
+            if want != out:
+                t = next(j for j, (a, b) in enumerate(zip(want, out)) if a != b)
+                raise AssertionError(f"[serve] float32 {label} row {i}: token {t} is "
+                                     f"{out[t]}, the teacher-forced argmax {want[t]}")
+    log(f"[serve] float32 {label} ({s32:.3f} s): all {len(outs)} x {n_new} generated "
+        "tokens equal the argmax of forward over the left-padded rows (prompt, pads "
+        "and generated tokens)")
+    eng = ServeEngine(cfg32, params, batch=1, max_len=LONG_PROMPT + long_new, device=device)
+    outs, s32 = wall_s(lambda: eng.generate(long, long_new))
+    with torch.inference_mode():
+        toks = torch.from_numpy(long[0][None]).to(device)
+        last, _ = prefill(params, cfg32, toks, max_len=LONG_PROMPT + long_new)
+        logits, _ = forward(params, cfg32, toks)
+        err = check_close(f"float32 {long_label}: prefill's last logits vs forward's",
+                          last[:, -1], logits[:, -1], 1e-4)
+        first = int(torch.argmax(logits[0, -1]))
+    if outs[0][0] != first:
+        raise AssertionError(f"[serve] float32 {long_label}: first token {outs[0][0]}, "
+                             f"forward's argmax {first}")
+    log(f"[serve] float32 {long_label} ({s32:.3f} s): first token {first} equals "
+        f"forward's argmax; prefill's last logits within {err:.3g} of forward's "
+        f"(tokens {outs[0]})")
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default="hex:256,256,256")
@@ -591,6 +936,7 @@ def run(device, args) -> int:
     """All phases on ``device``; raises on the first failure."""
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.core.distributed import _table, color_distributed
     from repro_torch.core.plan import ColoringPlan
     from repro_torch.graph.partition import partition_graph
@@ -603,6 +949,9 @@ def run(device, args) -> int:
     from repro_torch.launch.color import make_graph
 
     t_start = time.perf_counter()
+    # Full float32 products for every plain version and the float32 check.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     ident = card_identity()
     log(f"[card] {ident}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -898,9 +1247,17 @@ def run(device, args) -> int:
         check_results(f"d1_2gl {backend}", g, "d1_2gl", [got], [ref])
     log(f"[memory] d1_2gl: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB allocated")
-    del pg2
+    del pg2, g, ref, got, fused, refs, results, masks, colors0
 
-    # -- 4. the kernels line ----------------------------------------------------
+    # -- 4. serving, and flash_attention on the served model's tensors -------------
+    t0 = time.perf_counter()
+    entries["flash_attention"] = {
+        **kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:96", {}),
+        **serve_phase(device, args.seed, get_config(SERVE_ARCH), ledger, args.reps)}
+    log(f"[serve] the serving and flash phases took {time.perf_counter() - t0:.1f} s")
+
+    # -- 5. the kernels line ----------------------------------------------------
     for name, entry in entries.items():
         entry["launches"] = ledger.total(name)
     log(json.dumps({"kernels": [entries[name] for name in wrappers()]}))

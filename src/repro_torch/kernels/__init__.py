@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the coloring hot spots (Hopper, sm_90a).
+"""Hand-written CUDA kernels for Hopper (sm_90a): the coloring hot spots
+and the model's attention.
 
 * ``vb_bit``       -- windowed forbidden-bitmask color assignment
 * ``conflict``     -- Algorithm-4 conflict detection over ELL rows
@@ -8,6 +9,8 @@
   launch
 * ``pair_scatter`` -- ``(slot, value)`` pairs stored into slot tables (the
   receive step of the sparse exchanges)
+* ``flash_attention`` -- causal or full GQA attention with an online
+  softmax (``repro``'s ``kernels.ops.flash_attention``)
 
 Each kernel ships ``csrc/<name>.cu``, a wrapper in ``kernels/<name>.py``
 (``pair_scatter``: ``kernels/scatter.py``, as in ``repro``)

@@ -7,8 +7,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "SCATTER_SHAPES", "random_part",
-           "random_stacked", "random_ext", "random_round", "random_pairs", "round_pairs"]
+__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "SCATTER_SHAPES", "FLASH_SHAPES",
+           "random_part", "random_stacked", "random_ext", "random_round", "random_pairs",
+           "round_pairs", "random_qkv"]
 
 # (rows, lanes, ghosts) of tests/test_kernels.py.
 SHAPES = [(16, 3, 8), (100, 7, 40), (256, 1, 1), (515, 12, 200), (64, 33, 9)]
@@ -25,6 +26,18 @@ ROUND_SHAPES = [(100, 7, 40, True), (515, 5, 200, True), (256, 4, 1, False),
 SCATTER_SHAPES = [(1, 16, 5, None), (3, 100, 100, None), (4, 257, 64, None),
                   (2, 512, 1, None), (64, 300, 300, None), (5, 40, 40, 0),
                   (7, 33, 33, 33)]
+# (batch, Lq, Lk, q heads, kv heads, dh, causal, block_q, block_k) of the
+# flash-attention cases: the four of
+# tests/test_extensions.py::test_flash_attention_sweep; then query groups
+# of 1, 2, 4 and 8 over every head width the kernel takes, causal and
+# full, at lengths that are no multiple of the kernel's 64-row tile; and
+# causal with fewer and with more queries than keys.
+FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, True, 64, 64), (1, 256, 256, 8, 8, 32, True, 128, 128),
+                (2, 64, 64, 4, 1, 16, False, 32, 16), (1, 96, 96, 2, 2, 8, True, 32, 32)] + [
+    (2, 160, 160 if causal else 96, g * (1 if g == 8 else 2), 1 if g == 8 else 2, dh,
+     causal, 32, 32)
+    for g in (1, 2, 4, 8) for dh in (8, 16, 32, 64, 128) for causal in (True, False)
+] + [(1, 96, 160, 4, 2, 64, True, 32, 32), (1, 160, 96, 4, 2, 64, True, 32, 32)]
 
 
 def random_part(n, w, n_ghost, n_colors, seed, deg_max=50):
@@ -115,3 +128,11 @@ def round_pairs(g, seed, parts):
         slots[p, :c // 2] = rng.permutation(g)[:c // 2]
         vals[p] = rng.integers(1, 7, c)
     return slots, vals
+
+
+def random_qkv(b, lq, lk, hq, hkv, dh, seed):
+    """Standard-normal float32 ``(q, k, v)`` in the ``(B, L, H, dh)`` layout."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, lq, hq, dh), dtype=np.float32),
+            rng.standard_normal((b, lk, hkv, dh), dtype=np.float32),
+            rng.standard_normal((b, lk, hkv, dh), dtype=np.float32))

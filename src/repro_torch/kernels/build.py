@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "build", "build_dir", "load", "nvcc_path", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
-SOURCES = ("vb_bit", "conflict", "d2_forbidden", "fused_round", "pair_scatter")
+SOURCES = ("vb_bit", "conflict", "d2_forbidden", "fused_round", "pair_scatter",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,12 +19,13 @@ from repro_torch.core.local import (
 )
 from repro_torch.kernels.conflict import conflict_detect
 from repro_torch.kernels.d2_forbidden import d2_assign
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_round import fused_round
 from repro_torch.kernels.scatter import pair_scatter
 from repro_torch.kernels.vb_bit import vb_bit_assign
 
-__all__ = ["vb_bit_assign", "conflict_detect", "d2_assign", "fused_round",
-           "pair_scatter", "local_color_d1_cuda", "local_color_d2_cuda"]
+__all__ = ["vb_bit_assign", "conflict_detect", "d2_assign", "flash_attention",
+           "fused_round", "pair_scatter", "local_color_d1_cuda", "local_color_d2_cuda"]
 
 
 def local_color_d1_cuda(

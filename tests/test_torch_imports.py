@@ -12,6 +12,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,7 +55,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.core.distributed import color_distributed
     from repro_torch.graph.generators import hex_mesh
     from repro_torch.graph.partition import partition_graph
+    from repro_torch.configs import get_smoke
     from repro_torch.launch import color as cli
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pg = partition_graph(hex_mesh(4, 4, 4), 2)
@@ -63,6 +67,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--graph", "hex:4,4,4", "--parts", "2"])
     assert color_distributed(pg, device="cpu").converged
+    cfg = get_smoke("tinyllama_1_1b")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params, batch=1, max_len=8)
+    out = ServeEngine(cfg, params, batch=1, max_len=8, device="cpu").generate(
+        [np.arange(1, 4, dtype=np.int32)], max_new_tokens=2)
+    assert len(out) == 1 and len(out[0]) == 2
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):

@@ -14,11 +14,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._testing import (
-    D2_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext, random_pairs,
-    random_round, random_stacked, round_pairs,
+    D2_SHAPES, FLASH_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext,
+    random_pairs, random_qkv, random_round, random_stacked, round_pairs,
 )
 from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
 from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.fused_round import fused_round, fused_round_ref
 from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
 from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
@@ -137,3 +138,24 @@ def test_fused_round_pairs_kernel_matches_plain(card, n, w, g, real, parts, prob
     assert fused_round.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kernel_matches_plain(card, monkeypatch, shape, dtype):
+    """Against the fp32 plain version of the same (rounded) inputs: 2e-5 in
+    fp32 (sums in another order), 2e-2 in bf16 (the output rounds to bf16),
+    as tests/test_extensions.py holds the TPU kernel."""
+    b, lq, lk, hq, hkv, dh, causal, bq, bk = shape
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (t.to(dtype) for t in _t(*random_qkv(b, lq, lk, hq, hkv, dh, lq + dh),
+                                        device=card))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
