@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--graph hex:256,256,256] [--parts 8] [--seed 0]
+                          [--baseline-csrc DIR]
 
 Run from the root of a checkout.  It exits non-zero on any failure and
 prints no result line when ``torch.cuda.is_available()`` is false.  In
@@ -9,7 +10,10 @@ order it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds
    every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once), with one ``[ptxas]`` line per
+   kernel body (registers, static shared memory, spills); with
+   ``--baseline-csrc`` also another version's ``fused_round.cu`` (for
+   example the parent commit's);
 2. holds each coloring kernel to exact equality with its plain PyTorch
    version on the same CUDA tensors, on random inputs (the shapes of
    ``tests/test_kernels.py`` with 1 and 3 parts, both ``recolor_degrees``
@@ -18,7 +22,8 @@ order it:
    batches of 1 to 64 rows with padding, up to ``S`` pairs and none real;
    ``fused_round`` with ``(slot, color)`` pairs for d1 and d2), and
    ``flash_attention`` within 2e-5 (float32) and 2e-2 (bf16) of its plain
-   version on the card tests' shapes (``[flash]``);
+   version on the card tests' shapes, every output row within 2e-2 of its
+   norm (``[flash]``);
 3. generates the graph once and drives every path of the port on it, each
    with the kernels' launch counts set to 0 just before it and read just
    after it (and around each request), each kernel > 0 on the paths that
@@ -50,7 +55,9 @@ order it:
    ``PERF.md``, on d2's; ``pair_scatter`` on the first ``sparse_delta``
    round's, beside the one PyTorch call that computes the same function,
    ``torch.scatter``), holds them equal, computes each kernel's bound
-   from the bytes these inputs need it to move;
+   from the bytes these inputs need it to move; splits ``fused_round``'s
+   time into detection (a launch with ``max_iters = 0``) and fixed point
+   (``[split]``), the baseline's beside it;
 5. frees the coloring state and serves TinyLlama-1.1B at full width
    (random bf16 weights from ``--seed``) through ``ServeEngine``: a batch
    of four prompts (1,024, 700, 512, 64 tokens; 32 new) and one 16,384
@@ -60,9 +67,10 @@ order it:
    (``kernels.ops``) on layer 0's prefill q, k, v of both as its path,
    holds it (and SDPA) against the model's own attention and, at 1,024,
    its plain version (each element within 2e-2, each row within 2e-2 of
-   its norm), and times it beside SDPA against its operations bound; then
-   checks that a float32 copy of the model generates exactly the
-   teacher-forced argmax of ``forward``;
+   its norm), and times it beside SDPA against its operations bound, as
+   it does a second shape at head width 128 (Qwen3-32B's attention over
+   4,096 random bf16 tokens); then checks that a float32 copy of the
+   model generates exactly the teacher-forced argmax of ``forward``;
 6. prints one ``{"kernels": [...]}`` line with each kernel's launches
    summed over the paths, the ``nvidia-smi`` line, and
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -72,6 +80,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -85,20 +94,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate, data sheet
 BF16_TOL = 2e-2                 # bf16 rounds the output: rtol = atol
-# On the served path's q, k, v also: every output row (dh values of one
-# query and head) within ROW_TOL of the reference row, relative to that
-# row's 2-norm.  A row's elements shrink as 1/sqrt(keys seen), so a fixed
-# atol of BF16_TOL passes a dropped key tile in late rows; the row's own
-# norm scales with it.  bf16's unit roundoff is 2**-8 = 3.9e-3, and two
-# attentions that round P and the output at different points differ by a
-# few units in a row's norm.
-ROW_TOL = 2e-2
 # The [serve] phase: TinyLlama-1.1B at full width, random weights from --seed.
 SERVE_ARCH = "tinyllama_1_1b"
 SERVE_PROMPTS = (1024, 700, 512, 64)    # one batch of 4, left-padded to 1,024
 SERVE_NEW = 32
 LONG_PROMPT = 16384                     # above attn_chunk_threshold: chunked attention
 LONG_NEW = 8
+# flash_attention's second shape: Qwen3-32B's attention (64 q heads, 8 kv
+# heads, dh 128) over one sequence of 4,096 tokens of random bf16 q, k, v.
+WIDE_ARCH = "qwen3_32b"
+WIDE_LEN = 4096
 VALIDATORS = {"d1": "is_proper_d1", "d1_2gl": "is_proper_d1",
               "d2": "is_proper_d2", "pd2": "is_proper_pd2"}
 
@@ -165,10 +170,12 @@ def check_attention(name, got, want) -> dict:
     BF16_TOL) would fail."""
     import torch
 
+    from repro_torch.kernels._testing import ROW_TOL, max_row_error
+
     check_close(name, got, want, BF16_TOL)
+    row = max_row_error(got, want)
     got, want = got.float(), want.float()
     diff = got - want
-    row = (diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max().item()
     stats = {"max_abs_err": diff.abs().max().item(), "max_row_err": row,
              "mean_abs": want.abs().mean().item(),
              "beyond_1e-3": int((diff.abs() > 1e-3 + BF16_TOL * want.abs()).sum()),
@@ -180,6 +187,8 @@ def check_attention(name, got, want) -> dict:
 
 
 def fmt_attention(stats) -> str:
+    from repro_torch.kernels._testing import ROW_TOL
+
     return (f"max abs err {stats['max_abs_err']:.4g} (mean |o| {stats['mean_abs']:.4g}), "
             f"max row err {stats['max_row_err']:.4g} of the row's norm (limit {ROW_TOL}); "
             f"{stats['beyond_1e-3']} of {stats['elements']} elements beyond "
@@ -206,7 +215,7 @@ def check_equal(name, got, want) -> int:
 def kernel_vs_plain_grid(device) -> dict[str, int]:
     """Random cases of every kernel against its plain version; case counts."""
     from repro_torch.kernels._testing import (
-        D2_SHAPES, FLASH_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext,
+        D2_SHAPES, FLASH_SHAPES, ROUND_SHAPES, ROW_TOL, SCATTER_SHAPES, SHAPES, random_ext,
         random_pairs, random_round, round_pairs,
     )
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
@@ -268,21 +277,23 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
         cases["pair_scatter"] += 1
     t0 = time.perf_counter()
     worst = flash_grid(device)
-    cases["flash_attention"] = sum(n for n, _ in worst.values())
+    cases["flash_attention"] = sum(n for n, _, _ in worst.values())
     log(f"[flash] {len(FLASH_SHAPES)} shapes x (float32, bfloat16) in "
         f"{time.perf_counter() - t0:.1f} s: the kernel is within 2e-5 (float32) and "
-        f"{BF16_TOL} (bfloat16) of its fp32 plain version; max abs err "
-        + ", ".join(f"{dt} {err:.3g}" for dt, (_, err) in worst.items()))
+        f"{BF16_TOL} (bfloat16) of its fp32 plain version, every row within {ROW_TOL} of "
+        "its norm; max abs err, max row err "
+        + ", ".join(f"{dt} {err:.3g}, {row:.3g}" for dt, (_, err, row) in worst.items()))
     return cases
 
 
 def flash_grid(device) -> dict:
     """``flash_attention`` against its plain version on the card tests'
     shapes, each in float32 (2e-5) and bfloat16 (2e-2, against the fp32
-    plain version of the rounded inputs); returns {dtype: (cases, max err)}."""
+    plain version of the rounded inputs), and every output row within
+    ``ROW_TOL`` of its norm; returns {dtype: (cases, max err, max row err)}."""
     import torch
 
-    from repro_torch.kernels._testing import FLASH_SHAPES, random_qkv
+    from repro_torch.kernels._testing import FLASH_SHAPES, ROW_TOL, max_row_error, random_qkv
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
     worst = {}
@@ -290,12 +301,16 @@ def flash_grid(device) -> dict:
         arrays = to_device(random_qkv(b, lq, lk, hq, hkv, dh, lq + dh), device)
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, BF16_TOL)):
             q, k, v = (t.to(dtype) for t in arrays)
-            err = check_close(
-                f"flash_attention {b, lq, lk, hq, hkv, dh, causal} {dtype}",
-                flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk),
-                flash_attention_ref(q.float(), k.float(), v.float(), causal=causal), tol)
-            n, e = worst.get(str(dtype), (0, 0.0))
-            worst[str(dtype)] = (n + 1, max(e, err))
+            name = f"flash_attention {b, lq, lk, hq, hkv, dh, causal} {dtype}"
+            got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+            want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+            err = check_close(name, got, want, tol)
+            row = max_row_error(got, want)
+            if not row <= ROW_TOL:
+                raise AssertionError(f"{name}: a row differs by {row:.4g} of its norm "
+                                     f"(limit {ROW_TOL})")
+            n, e, r = worst.get(str(dtype), (0, 0.0, 0.0))
+            worst[str(dtype)] = (n + 1, max(e, err), max(r, row))
     return worst
 
 
@@ -608,6 +623,41 @@ def time_kernel(label, kern, plain, kargs, kw, nbytes, reps) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
+def fused_round_split(label, kargs, kw, reps, baseline=None) -> None:
+    """Where ``fused_round``'s time goes on these inputs: the C entry point
+    launched with ``max_iters = 0`` (detection, and for a kernel that keeps
+    a working table its copy-out) against the wrapper's cap, the rest being
+    the fixed point.  With ``baseline`` (another version's library) both
+    are timed in turns, baseline, this, this, baseline, after holding the
+    two equal."""
+    from repro_torch.core.local import MAX_ITERS_D1, MAX_ITERS_D2
+    from repro_torch.kernels.build import load
+    from repro_torch.kernels.fused_round import launch_kernel
+
+    full = list(kargs) + [None] * (9 - len(kargs))
+    cap = MAX_ITERS_D1 if kw["problem"] == "d1" else MAX_ITERS_D2
+    libs = {"this": load("fused_round")}
+    if baseline is not None:
+        libs["baseline"] = baseline
+        check_equal(f"fused_round {label}: baseline against this",
+                    launch_kernel(baseline, *full, recolor_degrees=True, max_iters=cap, **kw),
+                    launch_kernel(libs["this"], *full, recolor_degrees=True, max_iters=cap,
+                                  **kw))
+    order = ("baseline", "this", "this", "baseline") if baseline is not None else ("this",)
+    times = {}
+    for name in order:
+        per = []
+        for iters in (cap, 0):
+            per.append(time_ms(lambda: launch_kernel(libs[name], *full, recolor_degrees=True,
+                                                     max_iters=iters, **kw), reps))
+        times.setdefault(name, []).append(per)
+    for name, runs in times.items():
+        whole, detect = np.mean(runs, axis=0)
+        log(f"[split] fused_round {label}, {name} source: detection {detect:.4f} ms "
+            f"(max_iters = 0), fixed point {whole - detect:.4f} ms, whole {whole:.4f} ms "
+            f"(mean of {len(runs)})")
+
+
 def kernel_entry(name, src, replaces, measured) -> dict:
     """One kernel's ``{"kernels": [...]}`` entry; its ``launches`` are filled
     in once every path has run."""
@@ -831,6 +881,47 @@ def flash_on_path(cfg, qkv, ledger, reps) -> dict:
     return entry
 
 
+def flash_wide(device, seed, reps) -> None:
+    """``flash_attention`` at ``WIDE_ARCH``'s attention width (dh 128) on
+    random bf16 q, k, v of one ``WIDE_LEN``-token sequence from ``seed``:
+    held against the port's model attention at that length and against
+    SDPA, timed beside SDPA against its operations bound.  Its launches
+    compare and time; they belong to no path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.models.layers import attention_chunked, attention_dense
+
+    cfg = get_config(WIDE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((1, WIDE_LEN, cfg.n_heads, cfg.head_dim), generator=gen, device=device)
+    k, v = (torch.randn((1, WIDE_LEN, cfg.n_kv_heads, cfg.head_dim), generator=gen,
+                        device=device) for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    o = flash_attention(q, k, v, causal=True)
+    pos = torch.arange(WIDE_LEN, device=device)
+    if WIDE_LEN > cfg.attn_chunk_threshold:
+        name = "attention_chunked"
+        model = attention_chunked(q, k, v, pos, pos, causal=True, q_chunk=cfg.attn_q_chunk,
+                                  k_chunk=cfg.attn_k_chunk)
+    else:
+        name = "attention_dense"
+        model = attention_dense(q, k, v, pos, pos, causal=True)
+    vs_model = check_attention(f"flash_attention {cfg.name} vs the model's {name}", o, model)
+    del model
+    vs_sdpa = check_attention(f"SDPA {cfg.name} vs flash_attention", sdpa(q, k, v), o)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), reps)
+    library_ms = time_ms(lambda: sdpa(q, k, v), reps)
+    bound_ms, bound_by, flops, nbytes = flash_bound(q, k)
+    log(f"[time] flash_attention {cfg.name} 1x{WIDE_LEN} q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} {q.dtype} (random, seed {seed}): kernel {ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({flops} flop over 989 TFLOP/s, "
+        f"{nbytes} B over 3.35 TB/s: bound by {bound_by}), {bound_ms / ms:.2%} of the bound; "
+        f"vs the model's {name}: {fmt_attention(vs_model)}; SDPA vs the kernel: "
+        f"{fmt_attention(vs_sdpa)}")
+
+
 def serve_phase(device, seed, cfg, ledger, reps) -> dict:
     """Serve ``cfg`` (bf16) through ``ServeEngine``: the batch of four, then
     the long request; the kernel on their layer-0 q, k, v; then the float32
@@ -873,7 +964,8 @@ def serve_phase(device, seed, cfg, ledger, reps) -> dict:
     del params
     with torch.inference_mode():
         entry = flash_on_path(cfg, qkv, ledger, reps)
-    del qkv
+        del qkv
+        flash_wide(device, seed, reps)
 
     # The float32 check at the same width: the same draws, not rounded.
     torch.cuda.empty_cache()
@@ -921,6 +1013,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed calls per kernel")
+    ap.add_argument("--baseline-csrc", default=None,
+                    help="a directory with another version's fused_round.cu and *.cuh "
+                         "(for example the parent commit's src/repro_torch/csrc): its "
+                         "detection / fixed-point split is timed beside this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -961,10 +1057,26 @@ def run(device, args) -> int:
     t0 = time.perf_counter()
     build.build()
     log(f"[build] {len(build.SOURCES)} kernels in {time.perf_counter() - t0:.1f} s")
-    for name in build.SOURCES:
+    for name in build.SOURCES:          # one line per entry function
+        entry, spill = None, ""
         for line in build.ptxas_report(name).splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry" in line:   # the kernel's name and template arguments
+                m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel(?:I\w*?EE)?)", line)
+                entry = m.group(1) if m else line.split("'")[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and entry:
+                log(f"[ptxas] {name}: {entry}: {line.split(':', 1)[1].strip()}; {spill}")
+                entry = None
+    baseline = None
+    if args.baseline_csrc:
+        import ctypes
+        from pathlib import Path
+
+        t0 = time.perf_counter()
+        path = build.build(("fused_round",), csrc=Path(args.baseline_csrc))["fused_round"]
+        baseline = ctypes.CDLL(str(path))
+        log(f"[build] fused_round of {args.baseline_csrc} in {time.perf_counter() - t0:.1f} s")
 
     # -- 2. kernel vs plain on random inputs ---------------------------------
     cases = kernel_vs_plain_grid(device)
@@ -1061,6 +1173,8 @@ def run(device, args) -> int:
         time_kernel("fused_round", fused_round, fused_round_ref,
                     (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
                      st["is_boundary"]), {"problem": "d1"}, fr_bytes, args.reps))
+    fused_round_split("d1", (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
+                             st["is_boundary"]), {"problem": "d1"}, args.reps, baseline)
     # fused_round with pairs on the same inputs: the ghosts start at 0 and
     # every real ghost's color arrives as a (slot, color) pair, which must
     # give the same round.
@@ -1076,6 +1190,7 @@ def run(device, args) -> int:
                                     pairs=(pslots, ghost))
     time_kernel("fused_round with pairs", fused_round, fused_round_ref, pair_args,
                 {"problem": "d1"}, fp_bytes, args.reps)
+    fused_round_split("d1 with pairs", pair_args, {"problem": "d1"}, args.reps, baseline)
     del plan, st, vb_args, cf_args, tab, ctab, colors, ghost, pair_args, pslots
 
     # d1, cuda_fused: the same four requests.
@@ -1214,10 +1329,12 @@ def run(device, args) -> int:
                 nbytes, iters = fused_round_bytes(st, colors, ghost, "d2", True)
                 log(f"[time] fused_round d2 first-round inputs: the plain fixed "
                     f"point takes {iters} iterations")
-                time_kernel("fused_round d2", fused_round, fused_round_ref,
-                            (st["adj_cidx"], colors, ghost, st["deg_tab"],
-                             st["gid_tab"], st["is_boundary"], st["two_hop_cidx"]),
+                d2_args = (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
+                           st["is_boundary"], st["two_hop_cidx"])
+                time_kernel("fused_round d2", fused_round, fused_round_ref, d2_args,
                             {"problem": "d2"}, nbytes, args.reps)
+                fused_round_split("d2", d2_args, {"problem": "d2"}, args.reps, baseline)
+                del d2_args
                 del st, colors, ghost
             del kplan
         if problem == "d2":

@@ -7,9 +7,10 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "SCATTER_SHAPES", "FLASH_SHAPES",
-           "random_part", "random_stacked", "random_ext", "random_round", "random_pairs",
-           "round_pairs", "random_qkv"]
+__all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "ROUND_EDGES", "SCATTER_SHAPES",
+           "FLASH_SHAPES", "ROW_TOL", "max_row_error", "random_part", "random_stacked",
+           "random_ext", "random_round", "round_edge", "random_pairs", "round_pairs",
+           "random_qkv"]
 
 # (rows, lanes, ghosts) of tests/test_kernels.py.
 SHAPES = [(16, 3, 8), (100, 7, 40), (256, 1, 1), (515, 12, 200), (64, 33, 9)]
@@ -26,18 +27,46 @@ ROUND_SHAPES = [(100, 7, 40, True), (515, 5, 200, True), (256, 4, 1, False),
 SCATTER_SHAPES = [(1, 16, 5, None), (3, 100, 100, None), (4, 257, 64, None),
                   (2, 512, 1, None), (64, 300, 300, None), (5, 40, 40, 0),
                   (7, 33, 33, 33)]
+# The fused-round edge cases, each at d1, d2 and pd2, with and without
+# pairs: (name, rows, lanes, ghosts) for :func:`round_edge`.
+ROUND_EDGES = [("all_lose", 300, 5, 120), ("none_lose", 300, 5, 120),
+               ("one_part_slow", 400, 6, 160)]
 # (batch, Lq, Lk, q heads, kv heads, dh, causal, block_q, block_k) of the
 # flash-attention cases: the four of
 # tests/test_extensions.py::test_flash_attention_sweep; then query groups
 # of 1, 2, 4 and 8 over every head width the kernel takes, causal and
-# full, at lengths that are no multiple of the kernel's 64-row tile; and
-# causal with fewer and with more queries than keys.
+# full, at lengths that are no multiple of the kernel's 64-row tile; then
+# causal with fewer and with more queries than keys; lengths ragged
+# against the 128-query and 128-key tiles of the wgmma body, causal with
+# fewer and more queries than keys at dh 64 and 128 over several key
+# tiles; and batch * q heads = 65,600 at a tiny length.
 FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, True, 64, 64), (1, 256, 256, 8, 8, 32, True, 128, 128),
                 (2, 64, 64, 4, 1, 16, False, 32, 16), (1, 96, 96, 2, 2, 8, True, 32, 32)] + [
     (2, 160, 160 if causal else 96, g * (1 if g == 8 else 2), 1 if g == 8 else 2, dh,
      causal, 32, 32)
-    for g in (1, 2, 4, 8) for dh in (8, 16, 32, 64, 128) for causal in (True, False)
-] + [(1, 96, 160, 4, 2, 64, True, 32, 32), (1, 160, 96, 4, 2, 64, True, 32, 32)]
+    for g in (1, 2, 4, 8) for dh in (8, 16, 32, 64, 80, 128) for causal in (True, False)
+] + [(1, 96, 160, 4, 2, 64, True, 32, 32), (1, 160, 96, 4, 2, 64, True, 32, 32)] + [
+    (2, 200, 200, 4, 2, 64, True, 200, 200), (2, 129, 129, 8, 2, 128, True, 129, 129),
+    (1, 200, 200, 4, 1, 128, False, 200, 200), (3, 129, 129, 2, 2, 64, False, 129, 129),
+    (1, 200, 330, 4, 2, 64, True, 200, 330), (1, 330, 200, 4, 2, 64, True, 330, 200),
+    (1, 130, 300, 8, 1, 128, True, 130, 300), (1, 300, 130, 8, 1, 128, True, 300, 130),
+    (1, 129, 257, 16, 2, 80, True, 129, 257), (2050, 16, 16, 32, 4, 16, True, 16, 16),
+    (1025, 16, 16, 64, 8, 64, False, 16, 16),
+]
+# Every output row of a bf16 attention within ROW_TOL of the reference
+# row, relative to that row's 2-norm.  A row's elements shrink as
+# 1/sqrt(keys seen), so a fixed atol passes a dropped key tile in late
+# rows; the row's own norm scales with it.  bf16's unit roundoff is 2**-8
+# = 3.9e-3, and two attentions that round P and the output at different
+# points differ by a few units in a row's norm.
+ROW_TOL = 2e-2
+
+
+def max_row_error(got, want) -> float:
+    """The largest ``|got - want|`` over the last axis relative to ``want``'s
+    norm there, both compared in float32."""
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max())
 
 
 def random_part(n, w, n_ghost, n_colors, seed, deg_max=50):
@@ -90,6 +119,47 @@ def random_round(n, w, g, seed, parts, *, real_ghosts=True):
     if not real_ghosts:
         ghost[:] = 0
     return adj, two_hop, tab[:, :n].copy(), ghost, deg, gid, bd
+
+
+def round_edge(name, n, w, g, seed, parts):
+    """Stacked inputs of one coloring round, as :func:`random_round`, made
+    for an edge of the recolor fixed point:
+
+    - ``all_lose``: every row is a colored boundary row whose ghost lanes
+      all hold its color and whose ghosts all win (higher degree), so every
+      row loses and is recolored;
+    - ``none_lose``: every row is colored and no ghost holds a row's color,
+      so no row loses and the list of rows to recolor stays empty;
+    - ``one_part_slow``: part 0 as ``all_lose`` on a dense owned graph (its
+      fixed point takes many iterations), every other part with one
+      losing row, so the other parts stop iterating long before part 0.
+    """
+    adj, two_hop, colors, ghost, deg, gid, bd = random_round(n, w, g, seed, parts)
+    rng = np.random.default_rng(seed + 99)
+    if name == "none_lose":
+        colors[:] = 7 + rng.integers(0, 3, colors.shape)
+        ghost[:] = rng.integers(1, 7, ghost.shape)
+        return adj, two_hop, colors, ghost, deg, gid, bd
+    if name not in ("all_lose", "one_part_slow"):
+        raise ValueError(f"unknown round edge case {name!r}")
+    colors[:] = 1
+    ghost[:] = 1
+    bd[:] = True
+    lanes = rng.integers(n, n + g, adj.shape).astype(np.int32)
+    if name == "one_part_slow":
+        # Part 0: one ghost lane a row, the rest owned neighbours (a
+        # dense owned graph recolors over many speculative iterations).
+        lanes[0, :, 1:] = rng.integers(0, n, (n, adj.shape[-1] - 1))
+    adj[:] = lanes
+    deg[:, :n] = 1
+    deg[:, n:n + g] = 1000             # every ghost outranks every row
+    if name == "one_part_slow":
+        colors[1:] = 2                 # other parts: only row 0 collides
+        colors[1:, 0] = 1
+        deg[0, :n] = rng.integers(1, 5, n)   # part 0: ties broken by degree and hash
+    ext = random_ext(n, adj.shape[-1], g, seed + 7, parts)
+    two_hop = ext[np.arange(parts)[:, None, None], adj].reshape(parts, n, -1)
+    return adj, two_hop, colors, ghost, deg, gid, bd
 
 
 def random_pairs(rows, s, c, seed, k=None):

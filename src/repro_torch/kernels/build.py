@@ -65,22 +65,24 @@ def build_dir() -> Path:
     return root / "build"
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.blake2b(digest_size=8)
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):   # every source includes them
+    h.update((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):   # every source includes them
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()}.so"
 
 
-def build(names=SOURCES) -> dict[str, Path]:
+def build(names=SOURCES, csrc: Path = CSRC) -> dict[str, Path]:
     """Compile every library of ``names`` that is not built yet, in parallel.
 
+    ``csrc`` is the directory of the sources (``<name>.cu`` and the shared
+    ``*.cuh``): the port's own, or another version's, to time the two.
     Returns ``{name: library path}``.  Raises ``RuntimeError`` with the
     compiler's output when ``nvcc`` is missing or a build fails.
     """
-    out = {name: _lib_path(name) for name in names}
+    out = {name: _lib_path(name, csrc) for name in names}
     todo = {name: path for name, path in out.items() if not path.is_file()}
     if not todo:
         return out
@@ -92,7 +94,7 @@ def build(names=SOURCES) -> dict[str, Path]:
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)

@@ -18,7 +18,7 @@ from repro_torch.kernels.build import load
 
 __all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
 
-HEAD_DIMS = (8, 16, 32, 64, 128)     # the head widths the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)     # the head widths the kernel is built for
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
@@ -70,8 +70,6 @@ def flash_attention(
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv heads")
-    if b * hq > 65535:
-        raise ValueError(f"batch * heads = {b * hq} exceeds the grid's 65535")
     check_tensor(q, "q", q.dtype, (b, lq, hq, dh), contiguous=True)
     check_tensor(k, "k", q.dtype, (b, lk, hkv, dh), contiguous=True)
     check_tensor(v, "v", q.dtype, (b, lk, hkv, dh), contiguous=True)

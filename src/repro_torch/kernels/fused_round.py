@@ -26,7 +26,7 @@ from repro_torch.kernels import check_tensor, on_cpu
 from repro_torch.kernels.build import load
 from repro_torch.kernels.scatter import pair_scatter_ref
 
-__all__ = ["fused_round", "fused_round_ref"]
+__all__ = ["fused_round", "fused_round_ref", "launch_kernel"]
 
 # The kernel's problem codes, as csrc/fused_round.cu numbers them.
 _PROBLEM_CODES = {"d1": 0, "d2": 1, "pd2": 2}
@@ -106,10 +106,25 @@ def fused_round(
     if on_cpu(*args, *optional):
         return fused_round_ref(*args, th, pair_slots, pair_colors, problem=problem,
                                recolor_degrees=recolor_degrees)
+    out = launch_kernel(load("fused_round"), *args, th, pair_slots, pair_colors,
+                        problem=problem, recolor_degrees=recolor_degrees,
+                        max_iters=MAX_ITERS_D1 if problem == "d1" else MAX_ITERS_D2)
+    fused_round.launches += 1
+    return out
+
+
+def launch_kernel(lib, adj_cidx, colors, ghost, deg_tab, gid_tab, is_boundary, two_hop_cidx,
+                  pair_slots, pair_colors, *, problem, recolor_degrees, max_iters):
+    """One launch of ``lib``'s ``fused_round_launch`` on CUDA tensors, with
+    at most ``max_iters`` fixed-point iterations (0: detection only), as
+    :func:`fused_round` makes it; counts no launch.  ``lib`` is the loaded
+    library of ``csrc/fused_round.cu`` (``chip_smoke.py`` also passes the
+    build of another version of that source, to time the two)."""
     p, n, w = adj_cidx.shape
     g = ghost.shape[-1]
     t = n + g + 1
     check_tensor(adj_cidx, "adj_cidx", torch.int32, (p, n, w), contiguous=True)
+    th = two_hop_cidx
     h2 = 0
     if th is not None:
         h2 = th.shape[-1]
@@ -130,13 +145,12 @@ def fused_round(
     tab = torch.empty((p, t), **i32)
     newc = torch.empty((p, n), **i32)
     base = torch.empty((p, n), **i32)
-    remaining = torch.zeros((2, p), **i32)
+    remaining = torch.zeros((3 * p + 1,), **i32)
     out_colors = torch.empty((p, n), **i32)
     lose_v = torch.empty((p, n), dtype=torch.uint8, device=dev)
     lose_g = torch.zeros((p, g), dtype=torch.uint8, device=dev)
     count = torch.zeros((p,), **i32)
-    max_iters = MAX_ITERS_D1 if problem == "d1" else MAX_ITERS_D2
-    fn = load("fused_round").fused_round_launch
+    fn = lib.fused_round_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(adj_cidx.data_ptr(), th.data_ptr() if th is not None else None,
              colors.data_ptr(), cps, ghost.data_ptr(), gps,
@@ -151,7 +165,6 @@ def fused_round(
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_round: kernel launch failed with CUDA error {err}")
-    fused_round.launches += 1
     return out_colors, lose_v.view(torch.bool), lose_g.view(torch.bool), count
 
 

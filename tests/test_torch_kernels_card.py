@@ -14,8 +14,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._testing import (
-    D2_SHAPES, FLASH_SHAPES, ROUND_SHAPES, SCATTER_SHAPES, SHAPES, random_ext,
-    random_pairs, random_qkv, random_round, random_stacked, round_pairs,
+    D2_SHAPES, FLASH_SHAPES, ROUND_EDGES, ROUND_SHAPES, ROW_TOL, SCATTER_SHAPES, SHAPES,
+    max_row_error, random_ext, random_pairs, random_qkv, random_round, random_stacked,
+    round_edge, round_pairs,
 )
 from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
 from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
@@ -141,12 +142,35 @@ def test_fused_round_pairs_kernel_matches_plain(card, n, w, g, real, parts, prob
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,n,w,g", ROUND_EDGES)
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("problem", ["d1", "d2", "pd2"])
+@pytest.mark.parametrize("pairs", [False, True])
+def test_fused_round_kernel_edges_match_plain(card, name, n, w, g, parts, problem, pairs):
+    """Every row losing, none losing (an empty list of rows to recolor),
+    and one part iterating long after the others stopped."""
+    adj, th, colors, ghost, deg, gid, bd = _t(
+        *round_edge(name, n, w, g, n + parts, parts), device=card)
+    extra = _t(*round_pairs(g, n + 5, parts), device=card) if pairs else []
+    th = None if problem == "d1" else th
+    before = fused_round.launches
+    got = fused_round(adj, colors, ghost, deg, gid, bd, th, *extra, problem=problem)
+    want = fused_round_ref(adj, colors, ghost, deg, gid, bd, th, *extra, problem=problem)
+    torch.cuda.synchronize()
+    assert fused_round.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_attention_kernel_matches_plain(card, monkeypatch, shape, dtype):
     """Against the fp32 plain version of the same (rounded) inputs: 2e-5 in
     fp32 (sums in another order), 2e-2 in bf16 (the output rounds to bf16),
-    as tests/test_extensions.py holds the TPU kernel."""
+    as tests/test_extensions.py holds the TPU kernel; and every output row
+    within ROW_TOL of its norm, which a dropped or mis-masked key tile in
+    late rows fails."""
     b, lq, lk, hq, hkv, dh, causal, bq, bk = shape
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     q, k, v = (t.to(dtype) for t in _t(*random_qkv(b, lq, lk, hq, hkv, dh, lq + dh),
@@ -159,3 +183,4 @@ def test_flash_attention_kernel_matches_plain(card, monkeypatch, shape, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert max_row_error(got, want) <= ROW_TOL
