@@ -12,15 +12,18 @@ order it:
    every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with one ``[ptxas]`` line per
    kernel body (registers, static shared memory, spills); with
-   ``--baseline-csrc`` also another version's ``fused_round.cu`` (for
-   example the parent commit's);
+   ``--baseline-csrc`` also another version's ``fused_round.cu`` and
+   ``d2_forbidden.cu`` (for example the parent commit's);
 2. holds each coloring kernel to exact equality with its plain PyTorch
    version on the same CUDA tensors, on random inputs (the shapes of
    ``tests/test_kernels.py`` with 1 and 3 parts, both ``recolor_degrees``
    and ``partial_d2`` settings, cases without ghosts and with one ghost
    slot that holds no real ghost, ragged row counts; ``pair_scatter`` on
    batches of 1 to 64 rows with padding, up to ``S`` pairs and none real;
-   ``fused_round`` with ``(slot, color)`` pairs for d1 and d2), and
+   ``fused_round`` with ``(slot, color)`` pairs for d1 and d2; the list
+   form of ``d2_assign`` on every row, a random subset and none;
+   ``collision`` on every active row, a list with part 0 left out and an
+   empty one, over each lane block, and its listing launch), and
    ``flash_attention`` within 2e-5 (float32) and 2e-2 (bf16) of its plain
    version on the card tests' shapes, every output row within 2e-2 of its
    norm (``[flash]``);
@@ -52,12 +55,15 @@ order it:
 4. times each kernel and its plain version (CUDA events, median) on the
    inputs of its first main-path launch, right after the path that makes
    them (``fused_round`` on d1's, with and without pairs, and, for
-   ``PERF.md``, on d2's; ``pair_scatter`` on the first ``sparse_delta``
-   round's, beside the one PyTorch call that computes the same function,
-   ``torch.scatter``), holds them equal, computes each kernel's bound
-   from the bytes these inputs need it to move; splits ``fused_round``'s
-   time into detection (a launch with ``max_iters = 0``) and fixed point
-   (``[split]``), the baseline's beside it;
+   ``PERF.md``, on d2's; ``d2_assign`` on a cold and a warm d2 request's
+   first iteration, ``collision`` on the cold one's, beside the plain
+   test it replaces, ``collision_losers``; ``pair_scatter`` on the first
+   ``sparse_delta`` round's, beside the one PyTorch call that computes the
+   same function, ``torch.scatter``), holds them equal, computes each
+   kernel's bound from the bytes these inputs need it to move; splits
+   ``fused_round``'s time into detection (a launch with ``max_iters = 0``)
+   and fixed point (``[split]``), the baseline's beside it, and times the
+   baseline's ``d2_assign`` beside this one's;
 5. frees the coloring state and serves TinyLlama-1.1B at full width
    (random bf16 weights from ``--seed``) through ``ServeEngine``: a batch
    of four prompts (1,024, 700, 512, 64 tokens; 32 new) and one 16,384
@@ -121,6 +127,7 @@ def card_identity() -> str:
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels.collision import collision
     from repro_torch.kernels.conflict import conflict_detect
     from repro_torch.kernels.d2_forbidden import d2_assign
     from repro_torch.kernels.flash_attention import flash_attention
@@ -128,7 +135,7 @@ def wrappers() -> dict:
     from repro_torch.kernels.scatter import pair_scatter
     from repro_torch.kernels.vb_bit import vb_bit_assign
 
-    return {k.__name__: k for k in (vb_bit_assign, conflict_detect, d2_assign,
+    return {k.__name__: k for k in (vb_bit_assign, conflict_detect, d2_assign, collision,
                                     fused_round, pair_scatter, flash_attention)}
 
 
@@ -215,14 +222,16 @@ def check_equal(name, got, want) -> int:
 def kernel_vs_plain_grid(device) -> dict[str, int]:
     """Random cases of every kernel against its plain version; case counts."""
     from repro_torch.kernels._testing import (
-        D2_SHAPES, FLASH_SHAPES, ROUND_SHAPES, ROW_TOL, SCATTER_SHAPES, SHAPES, random_ext,
-        random_pairs, random_round, round_pairs,
+        D2_SHAPES, FIXED_POINT_SHAPES, FLASH_SHAPES, ROUND_SHAPES, ROW_TOL, SCATTER_SHAPES,
+        SHAPES, random_ext, random_fixed_point, random_pairs, random_round, round_pairs,
     )
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
-    from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
+    from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_list_ref
     from repro_torch.kernels.fused_round import fused_round, fused_round_ref
     from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
     from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
+
+    import torch
 
     cases = dict.fromkeys(wrappers(), 0)
     for n, w, g in SHAPES + [(300, 5, 0)]:
@@ -244,12 +253,21 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
         for parts in (1, 3):
             x = random_inputs(n, w, g, 20, n * 7, parts, device)
             ext, = to_device([random_ext(n, w, g, n, parts)], device)
+            every = torch.arange(parts * n, dtype=torch.int32, device=device)
             for partial_d2 in (False, True):
-                args = (x["adj"], ext, x["tab"], x["base"], x["active"])
-                check_equal(f"d2_assign {n, w, g, parts, partial_d2}",
-                            d2_assign(*args, partial_d2=partial_d2),
-                            d2_assign_ref(*args, partial_d2=partial_d2))
-                cases["d2_assign"] += 1
+                pick = torch.randperm(parts * n, generator=torch.Generator().manual_seed(n))
+                for rows in (every, every[pick[:n // 2].to(device)], every[:0]):
+                    args = (x["adj"], ext, x["tab"])
+                    outs = [[x["base"].clone(), x["tab"][:, :n].clone()] for _ in range(2)]
+                    check_equal(f"d2_assign {n, w, g, parts, partial_d2} {len(rows)} rows",
+                                d2_assign(*args, *outs[0], rows, partial_d2=partial_d2),
+                                d2_assign_list_ref(*args, *outs[1], rows,
+                                                   partial_d2=partial_d2))
+                    cases["d2_assign"] += 1
+    for n, w, g in FIXED_POINT_SHAPES + [(64, 33, 9)]:
+        for parts in (1, 3):
+            cases["collision"] += collision_grid(
+                to_device(random_fixed_point(n, w, g, n + 1, parts), device), n + parts)
     for n, w, g, real in ROUND_SHAPES:
         for parts in (1, 3):
             adj, th, colors, ghost, deg, gid, bd = to_device(
@@ -283,6 +301,57 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
         f"{BF16_TOL} (bfloat16) of its fp32 plain version, every row within {ROW_TOL} of "
         "its norm; max abs err, max row err "
         + ", ".join(f"{dt} {err:.3g}, {row:.3g}" for dt, (_, err, row) in worst.items()))
+    return cases
+
+
+def collision_grid(inputs, seed) -> int:
+    """``collision`` against its plain version on one fixed point's random
+    state (``random_fixed_point``): its listing launch, then a testing
+    launch after new colors land on the active uncolored rows, every part
+    running but the last of three, over every active row, a list without
+    part 0's rows and an empty list, each lane block and both
+    ``recolor_degrees``.  Lists are compared as sets (the kernel fills them
+    through atomics).  Returns the case count."""
+    import torch
+
+    from repro_torch.kernels.collision import (
+        collision, collision_lists, collision_lists_ref, collision_ref,
+    )
+
+    adj, _, th, tab, active, deg, gid = inputs
+    p, n = active.shape
+    i32 = dict(dtype=torch.int32, device=tab.device)
+    got = []
+    for fn in (collision_lists, collision_lists_ref):
+        rows, todo = torch.empty(p * n, **i32), torch.empty(p * n, **i32)
+        counts, newc, base = torch.zeros(p + 2, **i32), torch.zeros((p, n), **i32), \
+            torch.zeros((p, n), **i32)
+        fn(active, tab, rows, todo, counts, newc=newc, base=base)
+        got.append((rows[:int(counts[p + 1])].sort().values,
+                    todo[:int(counts[p])].sort().values, counts, newc, base))
+    check_equal(f"collision lists {p, n}", *got)
+    cases = 1
+    gen = torch.Generator(device=tab.device).manual_seed(seed)
+    todo = active & (tab[:, :n] == 0)
+    newc = torch.where(todo, torch.randint(0, 7, todo.shape, generator=gen, **i32), tab[:, :n])
+    cur = torch.zeros(p + 2, **i32)
+    cur[:p] = todo.any(dim=1).to(torch.int32)
+    if p == 3:
+        cur[2] = 0
+    every = torch.nonzero(active.reshape(-1))[:, 0].to(torch.int32)
+    for rows in (every, every[every >= n], every[:0]):
+        for lanes in ((adj, None), (th, None), (th, adj)):
+            for rd in (True, False):
+                got = []
+                for fn in (collision, collision_ref):
+                    out = [tab.clone(), torch.zeros_like(cur), torch.ones_like(cur),
+                           torch.full((p * n,), -1, **i32),
+                           torch.ones(len(rows), dtype=torch.bool, device=tab.device)]
+                    fn(*lanes, newc, out[0], deg, gid, rows, cur, *out[1:], recolor_degrees=rd)
+                    out[3] = out[3][:int(out[1][p])].sort().values
+                    got.append(out)
+                check_equal(f"collision {p, n, len(rows), lanes[1] is None, rd}", *got)
+                cases += 1
     return cases
 
 
@@ -413,24 +482,76 @@ def vb_bit_bytes(adj, colors, active, tab) -> int:
     return p * n * (4 + 1) + p * n * 8 + int(todo.sum()) * w * 4 + table * 4
 
 
-def d2_assign_bytes(adj, two_hop, colors, active, tab, partial_d2) -> int:
+def d2_assign_bytes(adj, two_hop, rows, n_tab, partial_d2) -> int:
     """Bytes ``d2_assign`` must move on these inputs, each read once.
 
-    As :func:`vb_bit_bytes`, and a row to color also reads the extended
-    adjacency row of each neighbor (each such row counted once per part);
-    the table entries it gathers are the two-hop ones, and the one-hop ones
-    unless ``partial_d2``.
+    Only listed rows are touched: each reads its list entry and base and
+    writes its color and base, reads its adjacency row and the extended
+    adjacency row of each neighbor (each such row counted once per part),
+    and gathers the table entries its lanes name: the two-hop ones, and the
+    one-hop ones unless ``partial_d2`` (each distinct entry once per part).
     """
+    import torch
+
     p, n, w = adj.shape
-    n_tab = tab.shape[-1]
-    todo = active & (colors == 0)
-    blocks = [(two_hop, todo[..., None] & (two_hop >= n))]
+    listed = torch.zeros(p * n, dtype=torch.bool, device=adj.device)
+    listed[rows.to(torch.int64)] = True
+    listed = listed.view(p, n, 1)
+    blocks = [(two_hop, listed.expand_as(two_hop))]
     if not partial_d2:
-        blocks.append((adj, todo[..., None] & (adj >= n)))
-    table = p * n + touched_entries(blocks, n_tab)
-    ext_rows = distinct_entries(adj, todo[..., None].expand_as(adj), n_tab)
-    return (p * n * (4 + 1) + p * n * 8 + int(todo.sum()) * w * 4
-            + ext_rows * w * 4 + table * 4)
+        blocks.append((adj, listed.expand_as(adj)))
+    table = touched_entries(blocks, n_tab)
+    ext_rows = distinct_entries(adj, listed.expand_as(adj), n_tab)
+    return len(rows) * (4 * 4 + w * 4) + ext_rows * w * 4 + table * 4
+
+
+def collision_bytes(blocks, newc, tab, deg, gid, rows, cur, recolor_degrees) -> int:
+    """Bytes ``collision`` must move on these inputs (a testing launch),
+    each read once.
+
+    Every entry is read and its lose byte written; an entry of a running
+    part reads its new color and writes its table entry, and with a new
+    color reads its lanes, block by block, up to the first one it loses to
+    (all of them if none), gathering the color each names (rows' from
+    ``newc``, ghosts' from the table: each distinct entry once per part),
+    and where the colors collide the lane's gid (and degree, with
+    ``recolor_degrees``) and once its own; a row left uncolored writes one
+    list entry.  The three count rows are read, added into and zeroed.
+    Counted one part at a time, so one part's lanes are the largest
+    temporary.
+    """
+    import torch
+
+    from repro_torch.core.conflict import v_loses
+
+    p, r = newc.shape
+    words = 2 if recolor_degrees else 1
+    e = rows.to(torch.int64)
+    parts = e // r
+    tested = cur[parts] > 0
+    nbytes = len(e) * (4 + 1) + int(tested.sum()) * (4 + 4) + 3 * (p + 2) * 4
+    for q in range(p):
+        rq = (e[tested & (parts == q)] - q * r)
+        nc = newc[q, rq]
+        lanes = torch.cat([b[q, rq] for b in blocks], dim=1).to(torch.int64)   # (L, K)
+        cu = torch.where(lanes < r, newc[q].gather(0, lanes.clamp(max=r - 1).view(-1))
+                         .view(lanes.shape), tab[q].gather(0, lanes.view(-1)).view(lanes.shape))
+        collide = (cu == nc[:, None]) & (nc[:, None] > 0)
+        lost = collide & v_loses(nc[:, None], cu, deg[q, rq][:, None], deg[q][lanes],
+                                 gid[q, rq][:, None], gid[q][lanes],
+                                 recolor_degrees=recolor_degrees)
+        k = lanes.shape[1]
+        first = torch.where(lost.any(1), lost.to(torch.int8).argmax(1) + 1, k)
+        read = (torch.arange(k, device=lanes.device) < first[:, None]) & (nc[:, None] > 0)
+        seen = torch.zeros(tab.shape[-1] + 1, dtype=torch.bool, device=tab.device)
+        seen[torch.where(read, lanes, tab.shape[-1]).view(-1)] = True
+        hit = torch.zeros_like(seen)
+        hit[torch.where(read & collide, lanes, tab.shape[-1]).view(-1)] = True
+        nbytes += (int(read.sum()) * 4 + int(seen[:-1].sum()) * 4
+                   + int(hit[:-1].sum()) * 4 * words
+                   + int((read & collide).any(1).sum()) * 4 * words
+                   + int(lost.any(1).sum() + (nc == 0).sum()) * 4)
+    return nbytes
 
 
 def conflict_bytes(adj, colors, ctab, v_rows, n_loc, recolor_degrees) -> int:
@@ -656,6 +777,135 @@ def fused_round_split(label, kargs, kw, reps, baseline=None) -> None:
         log(f"[split] fused_round {label}, {name} source: detection {detect:.4f} ms "
             f"(max_iters = 0), fixed point {whole - detect:.4f} ms, whole {whole:.4f} ms "
             f"(mean of {len(runs)})")
+
+
+def d2_first_iteration(plan, device, color_mask=None, colors0=None):
+    """The state of a d2 request's first local iteration on the ``cuda``
+    backend (``kernels/ops.py::local_color_d2_cuda``), from the listing
+    launch: ``(tab, active, base, newc, todo, rows, counts)``; ``todo`` the
+    active uncolored rows, ``rows`` every active row."""
+    import torch
+
+    from repro_torch.core.distributed import _table
+    from repro_torch.kernels.collision import collision_lists
+
+    c0, g0, a0, _ = plan.request_inputs(color_mask, colors0)
+    c0, g0, a0 = to_device((c0, g0, a0), device)
+    tab = _table(c0, g0)
+    p, n = a0.shape
+    i32 = dict(dtype=torch.int32, device=device)
+    rows, todo = torch.empty(p * n, **i32), torch.empty(p * n, **i32)
+    counts = torch.zeros((3, p + 2), **i32)
+    newc, base = torch.empty((p, n), **i32), torch.empty((p, n), **i32)
+    collision_lists(a0, tab, rows, todo, counts[0], newc=newc, base=base)
+    n_todo, n_rows = counts[0, p:].tolist()
+    return tab, a0, base, newc, todo[:n_todo], rows[:n_rows], counts
+
+
+def time_d2_assign(label, st, state, reps, baseline=None) -> dict:
+    """``d2_assign`` on one first iteration's list (``d2_first_iteration``)
+    against its plain version and its bytes bound; with ``baseline``
+    (another version's library) both timed in turns, baseline, this, this,
+    baseline, after holding the baseline equal on the listed rows.  Returns
+    the measured keys of its ``{"kernels": [...]}`` entry."""
+    import torch
+
+    from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_list_ref, launch_kernel
+
+    tab, active, base, newc, todo, _, _ = state
+    args = (st["adj_cidx"], st["ext_adj_cidx"], tab)
+    outs = [[base.clone(), newc.clone()] for _ in range(2)]
+    err = check_equal(f"d2_assign {label}", d2_assign(*args, *outs[0], todo),
+                      d2_assign_list_ref(*args, *outs[1], todo))
+    work = [base.clone(), newc.clone()]
+    ms = time_ms(lambda: d2_assign(*args, *work, todo), reps)
+    plain_ms = time_ms(lambda: d2_assign_list_ref(*args, *work, todo), max(reps // 4, 3))
+    nbytes = d2_assign_bytes(st["adj_cidx"], st["two_hop_cidx"], todo, tab.shape[-1], False)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] d2_assign {label}: {len(todo)} rows listed of {active.numel()}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B over "
+        f"3.35 TB/s), {bound_ms / ms:.1%} of the bound")
+    if baseline is not None:
+        def run_base(out=work):
+            launch_kernel(baseline, *args, *out, todo)
+            return out
+
+        e = todo.to(torch.int64)
+        check_equal(f"d2_assign {label}: baseline against this on the listed rows",
+                    [x.view(-1)[e] for x in run_base([base.clone(), newc.clone()])],
+                    [x.view(-1)[e] for x in outs[0]])
+        times = {}
+        for name in ("baseline", "this", "this", "baseline"):
+            fn = run_base if name == "baseline" else (lambda: d2_assign(*args, *work, todo))
+            times.setdefault(name, []).append(time_ms(fn, reps))
+        log(f"[time] d2_assign {label}, A/B in turns: baseline source "
+            f"{np.mean(times['baseline']):.4f} ms, this source {np.mean(times['this']):.4f} ms "
+            f"(means of 2: {times})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def time_collision(st, state, reps) -> dict:
+    """``collision`` on a cold d2 request's first iteration (after its
+    ``d2_assign``), against its plain version, the whole-table test it
+    replaced (``collision_losers`` over both blocks and the ``where`` that
+    zeroed the losers, as ``local_color_d2_cuda`` ran them) and its bytes
+    bound.  Returns the measured keys of its ``{"kernels": [...]}`` entry."""
+    import torch
+
+    from repro_torch.core.local import collision_losers
+    from repro_torch.kernels.collision import collision, collision_ref
+    from repro_torch.kernels.d2_forbidden import d2_assign
+
+    tab, active, base, newc, todo, rows, counts = state
+    newc, base = newc.clone(), base.clone()
+    d2_assign(st["adj_cidx"], st["ext_adj_cidx"], tab, base, newc, todo)
+    p, n = newc.shape
+    blocks = (st["two_hop_cidx"], st["adj_cidx"])
+    lose = torch.empty(len(rows), dtype=torch.bool, device=tab.device)
+    got, want = [], []
+    for fn, out in ((collision, got), (collision_ref, want)):
+        c = counts.clone()
+        c[1:] = 0
+        t = tab.clone()
+        fn(*blocks, newc, t, st["deg_tab"], st["gid_tab"], rows, c[0], c[1], c[2],
+           todo.new_empty(p * n), lose, recolor_degrees=True)
+        out += [t, lose.clone(), c[1]]
+    err = check_equal("collision on a cold d2 first iteration", got, want)
+    c = counts.clone()
+    c[1:] = 0
+    t = tab.clone()
+    left = todo.new_empty(p * n)
+    flip = [1, 2]
+
+    def call(fn):               # each call adds into the row the last one zeroed
+        flip.reverse()
+        fn(*blocks, newc, t, st["deg_tab"], st["gid_tab"], rows, c[0], c[flip[0]],
+           c[flip[1]], left, lose, recolor_degrees=True)
+
+    def old_test():
+        table = tab.clone()
+        table[:, :n] = newc
+        lost = collision_losers(newc, table, blocks[0], st["deg_tab"], st["gid_tab"],
+                                recolor_degrees=True)
+        lost |= collision_losers(newc, table, blocks[1], st["deg_tab"], st["gid_tab"],
+                                 recolor_degrees=True)
+        table[:, :n] = torch.where(active & lost, 0, newc)
+        return table
+
+    if not torch.equal(old_test(), got[0]):
+        raise AssertionError("collision: the table differs from collision_losers'")
+    ms = time_ms(lambda: call(collision), reps)
+    plain_ms = time_ms(lambda: call(collision_ref), 3)
+    old_ms = time_ms(old_test, 3)
+    nbytes = collision_bytes(blocks, newc, tab, st["deg_tab"], st["gid_tab"], rows,
+                             counts[0], True)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] collision cold d2 first iteration: {len(rows)} rows tested, "
+        f"{int(got[2][p])} left to color; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"collision_losers over both blocks + where (the test it replaced) {old_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({nbytes} B over 3.35 TB/s), {bound_ms / ms:.1%} of the "
+        "bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 def kernel_entry(name, src, replaces, measured) -> dict:
@@ -1014,9 +1264,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed calls per kernel")
     ap.add_argument("--baseline-csrc", default=None,
-                    help="a directory with another version's fused_round.cu and *.cuh "
-                         "(for example the parent commit's src/repro_torch/csrc): its "
-                         "detection / fixed-point split is timed beside this one's")
+                    help="a directory with another version's fused_round.cu, "
+                         "d2_forbidden.cu and *.cuh (for example the parent commit's "
+                         "src/repro_torch/csrc): its fused_round detection / fixed-point "
+                         "split and its d2_assign are timed beside this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -1038,7 +1289,6 @@ def run(device, args) -> int:
     from repro_torch.graph.partition import partition_graph
     from repro_torch.kernels import build
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
-    from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
     from repro_torch.kernels.fused_round import fused_round, fused_round_ref
     from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
     from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
@@ -1068,15 +1318,16 @@ def run(device, args) -> int:
             elif "registers" in line and entry:
                 log(f"[ptxas] {name}: {entry}: {line.split(':', 1)[1].strip()}; {spill}")
                 entry = None
-    baseline = None
+    baseline = {}
     if args.baseline_csrc:
         import ctypes
         from pathlib import Path
 
         t0 = time.perf_counter()
-        path = build.build(("fused_round",), csrc=Path(args.baseline_csrc))["fused_round"]
-        baseline = ctypes.CDLL(str(path))
-        log(f"[build] fused_round of {args.baseline_csrc} in {time.perf_counter() - t0:.1f} s")
+        paths = build.build(("fused_round", "d2_forbidden"), csrc=Path(args.baseline_csrc))
+        baseline = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
+        log(f"[build] fused_round and d2_forbidden of {args.baseline_csrc} in "
+            f"{time.perf_counter() - t0:.1f} s")
 
     # -- 2. kernel vs plain on random inputs ---------------------------------
     cases = kernel_vs_plain_grid(device)
@@ -1119,7 +1370,7 @@ def run(device, args) -> int:
         r, _ = ledger.timed(f"d1 cuda warm {i + 1}",
                             lambda: plan.run(color_mask=m, colors0=c0))
         results.append(r)
-    ledger.end("d1 cuda", ("vb_bit_assign", "conflict_detect"))
+    ledger.end("d1 cuda", ("vb_bit_assign", "collision", "conflict_detect"))
 
     ref_plan = ColoringPlan(pg, backend="reference", device=device)
     t0 = time.perf_counter()
@@ -1174,7 +1425,8 @@ def run(device, args) -> int:
                     (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
                      st["is_boundary"]), {"problem": "d1"}, fr_bytes, args.reps))
     fused_round_split("d1", (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
-                             st["is_boundary"]), {"problem": "d1"}, args.reps, baseline)
+                             st["is_boundary"]), {"problem": "d1"}, args.reps,
+                     baseline.get("fused_round"))
     # fused_round with pairs on the same inputs: the ghosts start at 0 and
     # every real ghost's color arrives as a (slot, color) pair, which must
     # give the same round.
@@ -1190,7 +1442,8 @@ def run(device, args) -> int:
                                     pairs=(pslots, ghost))
     time_kernel("fused_round with pairs", fused_round, fused_round_ref, pair_args,
                 {"problem": "d1"}, fp_bytes, args.reps)
-    fused_round_split("d1 with pairs", pair_args, {"problem": "d1"}, args.reps, baseline)
+    fused_round_split("d1 with pairs", pair_args, {"problem": "d1"}, args.reps,
+                     baseline.get("fused_round"))
     del plan, st, vb_args, cf_args, tab, ctab, colors, ghost, pair_args, pslots
 
     # d1, cuda_fused: the same four requests.
@@ -1203,7 +1456,7 @@ def run(device, args) -> int:
     for i, (m, c0) in enumerate(zip(masks, colors0)):
         fused.append(ledger.timed(f"d1 cuda_fused warm {i + 1}",
                                   lambda: fplan.run(color_mask=m, colors0=c0))[0])
-    ledger.end("d1 cuda_fused", ("vb_bit_assign", "fused_round"))
+    ledger.end("d1 cuda_fused", ("vb_bit_assign", "collision", "fused_round"))
     check_results("d1 cuda_fused", g, "d1", fused, refs)
     profile_request("d1 cuda_fused warm",
                     lambda: fplan.run(color_mask=masks[0], colors0=colors0[0]))
@@ -1223,7 +1476,7 @@ def run(device, args) -> int:
         for i, (m, c0) in enumerate(zip(masks, colors0)):
             got.append(ledger.timed(f"d1 {name} warm {i + 1}",
                                     lambda: xplan.run(color_mask=m, colors0=c0))[0])
-        ledger.end(f"d1 {name}", ("vb_bit_assign", "fused_round")
+        ledger.end(f"d1 {name}", ("vb_bit_assign", "collision", "fused_round")
                    + (("pair_scatter",) if scatter else ()))
         check_exchange(f"d1 {name}", g, "d1", got, fused)
         if scatter:
@@ -1277,6 +1530,9 @@ def run(device, args) -> int:
     for problem in ("d2", "pd2"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # The phase's peak, window by window: each kernel backend resets the
+        # peak before its requests, and its window holds its timings too.
+        peaks, window = {}, "reference"
         t0 = time.perf_counter()
         rplan = ColoringPlan(pg2, problem=problem, backend="reference", device=device)
         torch.cuda.synchronize()
@@ -1290,14 +1546,20 @@ def run(device, args) -> int:
         log(f"[main] {problem} reference backend on the card: cold and warm "
             f"{time.perf_counter() - t0:.3f} s (rounds {[r.rounds for r in refs]})")
         del rplan
-        for backend, uses in (("cuda", ("d2_assign", "conflict_detect")),
-                              ("cuda_fused", ("d2_assign", "fused_round"))):
+        for backend, uses in (("cuda", ("d2_assign", "collision", "conflict_detect")),
+                              ("cuda_fused", ("d2_assign", "collision", "fused_round"))):
             kplan = ColoringPlan(pg2, problem=problem, backend=backend, device=device)
+            torch.cuda.synchronize()
+            peaks[window], window = torch.cuda.max_memory_allocated() / 2**30, backend
+            torch.cuda.reset_peak_memory_stats()
             ledger.start()
             got = [ledger.timed(f"{problem} {backend} cold", kplan.run)[0],
                    ledger.timed(f"{problem} {backend} warm 1",
                                 lambda: kplan.run(color_mask=masks[0], colors0=c0))[0]]
             ledger.end(f"{problem} {backend}", uses)
+            log(f"[memory] {problem} {backend}: peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated over its "
+                "cold and warm requests (its plan's state included)")
             check_results(f"{problem} {backend}", g, problem, got, refs)
             if backend == "cuda_fused":
                 fused = got
@@ -1305,22 +1567,25 @@ def run(device, args) -> int:
                 profile_request("d2 cuda_fused warm",
                                 lambda: kplan.run(color_mask=masks[0], colors0=c0))
             if problem == "d2" and backend == "cuda":
-                # d2_assign: the first launch of the cold run (every active
-                # row uncolored).
-                st, n = kplan._st, kplan.n_local
-                c00, g00, a00, _ = kplan.request_inputs()
-                c00, g00, a00 = to_device((c00, g00, a00), device)
-                tab = _table(c00, g00)
+                # d2_assign and collision: the first iteration of the cold
+                # run (every active row uncolored), and d2_assign's of the
+                # warm one (the cleared 10%).
+                st = kplan._st
+                cold = d2_first_iteration(kplan, device)
                 entries["d2_assign"] = kernel_entry(
                     "d2_assign", "src/repro_torch/csrc/d2_forbidden.cu",
                     "src/repro/kernels/d2_forbidden.py:89",
-                    time_kernel("d2_assign", d2_assign, d2_assign_ref,
-                                (st["adj_cidx"], st["ext_adj_cidx"], tab,
-                                 torch.ones_like(c00), a00), {"partial_d2": False},
-                                d2_assign_bytes(st["adj_cidx"], st["two_hop_cidx"],
-                                                tab[:, :n], a00, tab, False),
-                                args.reps))
-                del st, tab, c00, g00, a00
+                    time_d2_assign("cold d2 first iteration", st, cold, args.reps,
+                                   baseline.get("d2_forbidden")))
+                entries["collision"] = kernel_entry(
+                    "collision", "src/repro_torch/csrc/collision.cu",
+                    "none: src/repro/kernels/ops.py:72-80, :146-160 (jnp)",
+                    time_collision(st, cold, args.reps))
+                del cold
+                warm = d2_first_iteration(kplan, device, masks[0], c0)
+                time_d2_assign("warm 10% d2 first iteration", st, warm, args.reps,
+                               baseline.get("d2_forbidden"))
+                del st, warm
             if problem == "d2" and backend == "cuda_fused":
                 # fused_round on d2: the first round of the cold run, timed
                 # for PERF.md beside the d1 entry of the kernels line.
@@ -1333,7 +1598,8 @@ def run(device, args) -> int:
                            st["is_boundary"], st["two_hop_cidx"])
                 time_kernel("fused_round d2", fused_round, fused_round_ref, d2_args,
                             {"problem": "d2"}, nbytes, args.reps)
-                fused_round_split("d2", d2_args, {"problem": "d2"}, args.reps, baseline)
+                fused_round_split("d2", d2_args, {"problem": "d2"}, args.reps,
+                     baseline.get("fused_round"))
                 del d2_args
                 del st, colors, ghost
             del kplan
@@ -1346,11 +1612,16 @@ def run(device, args) -> int:
                 got = [ledger.timed(f"d2 {name} cold", xplan.run)[0],
                        ledger.timed(f"d2 {name} warm 1",
                                     lambda: xplan.run(color_mask=masks[0], colors0=c0))[0]]
-                ledger.end(f"d2 {name}", ("d2_assign", "fused_round", "pair_scatter"))
+                ledger.end(f"d2 {name}", ("d2_assign", "collision", "fused_round",
+                                          "pair_scatter"))
                 check_exchange(f"d2 {name}", g, "d2", got, fused)
                 del xplan
-        log(f"[memory] {problem}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-            "GiB allocated")
+        peaks[window] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[memory] {problem}: peak {max(peaks.values()):.2f} GiB allocated over the "
+            "phase; by window (from one reset to the next: the reference backend, then "
+            "each kernel backend with its timings"
+            + (" and the exchanges" if problem == "d2" else "") + "): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()))
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1360,7 +1631,7 @@ def run(device, args) -> int:
         got, _ = ledger.timed(f"d1_2gl {backend} cold color_distributed",
                               lambda: color_distributed(pg2, problem="d1_2gl",
                                                         backend=backend, device=device))
-        ledger.end(f"d1_2gl {backend}", ("vb_bit_assign", "conflict_detect"))
+        ledger.end(f"d1_2gl {backend}", ("vb_bit_assign", "collision", "conflict_detect"))
         check_results(f"d1_2gl {backend}", g, "d1_2gl", [got], [ref])
     log(f"[memory] d1_2gl: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB allocated")

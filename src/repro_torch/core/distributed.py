@@ -323,7 +323,10 @@ def color_distributed(
     ``pair_scatter`` kernel.  All give identical colorings and round
     counts; each reports its own measured bytes.
 
-    engine: only ``"simulate"`` (every part stacked on one device).
+    engine: ``"simulate"`` (every part stacked on one device) or
+    ``"auto"``, which resolves as ``repro``'s does: ``"shard_map"`` when
+    there are at least ``n_parts > 1`` devices of the plan's type, else
+    ``"simulate"``.  ``"shard_map"`` is not ported yet and raises.
 
     color_mask: optional (n_global,) bool — restrict coloring to a vertex
     subset.
@@ -331,8 +334,9 @@ def color_distributed(
     device: ``None`` means ``"cuda"``; pass ``"cpu"`` to run on the CPU.
     Without a card, the default raises instead of falling back.
     """
-    from repro_torch.core.plan import ColoringPlan
+    from repro_torch.core.plan import ColoringPlan, _resolve_engine
 
+    engine = _resolve_engine(engine, pg.n_parts, device)
     if engine != "simulate":
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet (ROADMAP.md, queue 8)")

@@ -37,6 +37,17 @@ from repro_torch.graph.partition import PAD_GID, PartitionedGraph
 __all__ = ["ColoringPlan", "resolve_device"]
 
 
+def _resolve_engine(engine: str, n_parts: int, device=None) -> str:
+    """``"auto"`` → ``"shard_map"`` when the devices of the plan's type
+    number at least ``n_parts > 1``, else ``"simulate"``, as ``repro``'s
+    ``core/plan.py::_resolve_engine``; any other name is returned as it is."""
+    if engine != "auto":
+        return engine
+    dev = resolve_device(device)
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return "shard_map" if count >= n_parts > 1 else "simulate"
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` → ``cuda``.  A CUDA device without a card raises: the port
     never falls back to the CPU unless the caller asks for it."""

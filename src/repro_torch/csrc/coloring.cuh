@@ -3,8 +3,8 @@
 // The kernels must agree bit for bit with each other and with the plain
 // PyTorch versions (repro_torch/core/conflict.py, core/local.py), so the
 // hash, the Algorithm-4 loser rule and the VB_BIT window pick live here
-// once: vb_bit.cu, conflict.cu, d2_forbidden.cu and fused_round.cu
-// include this header.
+// once: vb_bit.cu, conflict.cu, d2_forbidden.cu, collision.cu and
+// fused_round.cu include this header.
 #pragma once
 
 #include <cstdint>

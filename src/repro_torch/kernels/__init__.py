@@ -3,7 +3,10 @@ and the model's attention.
 
 * ``vb_bit``       -- windowed forbidden-bitmask color assignment
 * ``conflict``     -- Algorithm-4 conflict detection over ELL rows
-* ``d2_forbidden`` -- net-based two-hop (distance-2) color assignment
+* ``d2_forbidden`` -- net-based two-hop (distance-2) color assignment over
+  a list of the rows to color
+* ``collision``    -- the Alg-4 speculative-collision test of the local
+  fixed points over a list of the active rows, committed into the table
 * ``fused_round``  -- one whole round (optional pair scatter into the
   ghosts, detect, zero losers, recolor fixed point) in one cooperative
   launch
@@ -19,6 +22,8 @@ wrapper.  A wrapper takes the plain version only for tensors that lie on
 the CPU; for CUDA tensors it launches the kernel or raises.
 ``csrc/coloring.cuh`` holds the device math they share (``gid_hash``, the
 Alg-4 loser rule, the window bit and pick), so they agree bit for bit.
+``kernels/ops.py`` runs the local fixed points on ``vb_bit``,
+``d2_forbidden`` and ``collision``.
 ``kernels/build.py`` compiles the sources with ``nvcc`` at first use.
 """
 from __future__ import annotations

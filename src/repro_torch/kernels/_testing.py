@@ -10,7 +10,7 @@ import numpy as np
 __all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "ROUND_EDGES", "SCATTER_SHAPES",
            "FLASH_SHAPES", "ROW_TOL", "max_row_error", "random_part", "random_stacked",
            "random_ext", "random_round", "round_edge", "random_pairs", "round_pairs",
-           "random_qkv"]
+           "random_qkv", "FIXED_POINT_SHAPES", "random_fixed_point"]
 
 # (rows, lanes, ghosts) of tests/test_kernels.py.
 SHAPES = [(16, 3, 8), (100, 7, 40), (256, 1, 1), (515, 12, 200), (64, 33, 9)]
@@ -53,6 +53,8 @@ FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, True, 64, 64), (1, 256, 256, 8, 8, 32, T
     (1, 129, 257, 16, 2, 80, True, 129, 257), (2050, 16, 16, 32, 4, 16, True, 16, 16),
     (1025, 16, 16, 64, 8, 64, False, 16, 16),
 ]
+# (rows, lanes, ghosts) of the local fixed points' cases (kernels/ops.py).
+FIXED_POINT_SHAPES = [(120, 5, 48), (515, 6, 200)]
 # Every output row of a bf16 attention within ROW_TOL of the reference
 # row, relative to that row's 2-norm.  A row's elements shrink as
 # 1/sqrt(keys seen), so a fixed atol passes a dropped key tile in late
@@ -160,6 +162,27 @@ def round_edge(name, n, w, g, seed, parts):
     ext = random_ext(n, adj.shape[-1], g, seed + 7, parts)
     two_hop = ext[np.arange(parts)[:, None, None], adj].reshape(parts, n, -1)
     return adj, two_hop, colors, ghost, deg, gid, bd
+
+
+def random_fixed_point(n, w, g, seed, parts):
+    """Stacked inputs of a local fixed point on random tables:
+    ``(adj, ext, two_hop, tab, active, deg_tab, gid_tab)``.
+
+    As :func:`random_round` draws them (asymmetric lanes, colors from a few
+    values, so that many rows collide), with each part's share of
+    uncolored rows ``(0.9, 0, 0.3)[p % 3]``: part 0 recolors most of its
+    rows over several iterations, part 1 has every active row colored on
+    entry (it does not run, though some of its active rows collide with a
+    ghost), part 2 warm-starts and stops earlier than part 0.
+    """
+    _, (adj, tab, _, active, deg, gid, _) = random_stacked(n, w, g, 6, seed, parts)
+    ext = random_ext(n, w, g, seed + 7, parts)
+    two_hop = ext[np.arange(parts)[:, None, None], adj].reshape(parts, n, w * w)
+    rng = np.random.default_rng(seed + 5)
+    for p in range(parts):
+        tab[p, :n][rng.random(n) < (0.9, 0.0, 0.3)[p % 3]] = 0
+    tab[1::3, :n][active[1::3] & (tab[1::3, :n] == 0)] = 1
+    return adj, ext, two_hop, tab, active, deg, gid
 
 
 def random_pairs(rows, s, c, seed, k=None):

@@ -1,16 +1,19 @@
-"""``d2_forbidden`` — net-based two-hop color assignment.
+"""``d2_forbidden`` — net-based two-hop color assignment over a list of rows.
 
 The CUDA kernel (``csrc/d2_forbidden.cu``) replaces the TPU kernel
 ``repro/kernels/d2_forbidden.py::d2_forbidden`` together with the pick of
 ``repro/kernels/ops.py::d2_assign_pallas``: the main path only ever uses
-the mask to pick a color, so the kernel does both in one pass and
-:func:`d2_assign` returns ``(new_colors, new_base)`` as ``vb_bit_assign``
-does.  Two plain-PyTorch versions sit beside it:
+the mask to pick a color, so the kernel does both in one pass.  It walks
+a list of the rows to color (entries ``p * N + r``) and writes their new
+color and window base into ``newc`` and ``base`` in place; rows that are
+not listed are not touched.  Three plain-PyTorch versions sit beside it:
 
-* :func:`d2_forbidden_ref` — the mask alone, int64 holding uint32 values
-  (the counterpart of ``repro/kernels/ref.py::d2_forbidden_ref``);
-* :func:`d2_assign_ref` — that mask plus ``pick_color``, the plain
-  version of the kernel.
+* :func:`d2_forbidden_ref` — the mask alone over every row, int64 holding
+  uint32 values (the counterpart of ``repro/kernels/ref.py::d2_forbidden_ref``);
+* :func:`d2_assign_ref` — that mask plus ``pick_color`` over every row,
+  ``(new_colors, new_base)``, the counterpart of ``d2_assign_pallas``;
+* :func:`d2_assign_list_ref` — :func:`d2_assign_ref` restricted to the
+  listed rows, the plain version of the kernel.
 
 All work on the stacked part axis: ``adj_cidx (P, N, W)``,
 ``ext_adj_cidx (P, T, W)`` (one adjacency row per color-table entry),
@@ -26,13 +29,13 @@ from repro_torch.core.local import build_two_hop, forbidden_mask, gather_rows, p
 from repro_torch.kernels import check_tensor, on_cpu
 from repro_torch.kernels.build import load
 
-__all__ = ["d2_assign", "d2_assign_ref", "d2_forbidden_ref"]
+__all__ = ["d2_assign", "d2_assign_list_ref", "d2_assign_ref", "d2_forbidden_ref",
+           "launch_kernel"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P, _P,
-             _INT, _INT, _INT, _INT, _INT, _P]
+_ARGTYPES = [_P, _P, _P, _I64, _P, _I64, _P, _P, _INT, _INT, _INT, _INT, _INT, _P]
 
 
 def d2_forbidden_ref(adj_cidx, base, active, colors, color_tab, ext_adj_cidx, *,
@@ -54,7 +57,9 @@ def d2_forbidden_ref(adj_cidx, base, active, colors, color_tab, ext_adj_cidx, *,
 
 def d2_assign_ref(adj_cidx, ext_adj_cidx, color_tab, base, active, *,
                   partial_d2=False):
-    """Plain version of :func:`d2_assign`."""
+    """One assignment step over every row: ``(new_colors, new_base)``; an
+    active uncolored row takes its pick, every other row keeps its color
+    and base."""
     n = active.shape[-1]
     colors = color_tab[:, :n].to(torch.int32)
     base = base.to(torch.int32)
@@ -68,22 +73,56 @@ def d2_assign_ref(adj_cidx, ext_adj_cidx, color_tab, base, active, *,
     return new_colors, new_base
 
 
+def d2_assign_list_ref(adj_cidx, ext_adj_cidx, color_tab, base, newc, rows, *,
+                       partial_d2=False):
+    """Plain version of :func:`d2_assign`: :func:`d2_assign_ref`'s pick at
+    the listed rows, taken as uncolored, stored into ``newc`` and ``base``."""
+    p, n, w = adj_cidx.shape
+    e = rows.to(torch.int64)
+    part = (e // n)[:, None]
+    lanes = adj_cidx.reshape(p * n, w)[e].to(torch.int64)               # (L, W)
+    tab = color_tab.to(torch.int32)
+    colors = tab[part, ext_adj_cidx[part, lanes].reshape(len(e), w * w).to(torch.int64)]
+    if not partial_d2:
+        colors = torch.cat([tab[part, lanes], colors], dim=-1)
+    b = base.view(-1)[e]
+    cand, ok = pick_color(forbidden_mask(colors, b), b)
+    newc.view(-1)[e] = torch.where(ok, cand, 0)
+    base.view(-1)[e] = torch.where(ok, b, b + 32)
+    return newc, base
+
+
 def d2_assign(
     adj_cidx: torch.Tensor,       # (P, N, W) int32, contiguous
     ext_adj_cidx: torch.Tensor,   # (P, T, W) int32, contiguous
-    color_tab: torch.Tensor,      # (P, T) int32; [:, :N] are the rows' colors
-    base: torch.Tensor,           # (P, N) int32 window starts
-    active: torch.Tensor,         # (P, N) bool
+    color_tab: torch.Tensor,      # (P, T) int32 iteration-start colors
+    base: torch.Tensor,           # (P, N) int32 window starts, contiguous
+    newc: torch.Tensor,           # (P, N) int32 new colors, contiguous
+    rows: torch.Tensor,           # (L,) int32 entries p * N + r, each once
     *,
     partial_d2: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One distance-2 assignment step. Returns ``(new_colors, new_base)``.
+    """One distance-2 assignment step over the listed rows, which are taken
+    as uncolored: their new color and window base go into ``newc`` and
+    ``base`` in place.  Returns ``(newc, base)``.
 
     Every index in ``adj_cidx`` and ``ext_adj_cidx`` must lie in ``[0, T)``.
     """
-    if on_cpu(adj_cidx, ext_adj_cidx, color_tab, base, active):
-        return d2_assign_ref(adj_cidx, ext_adj_cidx, color_tab, base, active,
-                             partial_d2=partial_d2)
+    args = (adj_cidx, ext_adj_cidx, color_tab, base, newc, rows)
+    if on_cpu(*args):
+        return d2_assign_list_ref(*args, partial_d2=partial_d2)
+    if launch_kernel(load("d2_forbidden"), *args, partial_d2=partial_d2):
+        d2_assign.launches += 1
+    return newc, base
+
+
+def launch_kernel(lib, adj_cidx, ext_adj_cidx, color_tab, base, newc, rows, *,
+                  partial_d2=False) -> bool:
+    """One call of ``lib``'s ``d2_assign_list_launch`` on CUDA tensors, as
+    :func:`d2_assign` makes it; counts no launch.  Returns whether the
+    kernel was launched (an empty list launches nothing).  ``lib`` is the
+    loaded library of ``csrc/d2_forbidden.cu`` (``chip_smoke.py`` also
+    passes the build of another version of that source, to time the two)."""
     p, n, w = adj_cidx.shape
     t = color_tab.shape[-1]
     if n >= t:
@@ -91,21 +130,18 @@ def d2_assign(
     check_tensor(adj_cidx, "adj_cidx", torch.int32, (p, n, w), contiguous=True)
     check_tensor(ext_adj_cidx, "ext_adj_cidx", torch.int32, (p, t, w), contiguous=True)
     tps = check_tensor(color_tab, "color_tab", torch.int32, (p, t))
-    bps = check_tensor(base, "base", torch.int32, (p, n))
-    aps = check_tensor(active, "active", torch.bool, (p, n))
-    dev = adj_cidx.device
-    out_colors = torch.empty((p, n), dtype=torch.int32, device=dev)
-    out_base = torch.empty((p, n), dtype=torch.int32, device=dev)
-    fn = load("d2_forbidden").d2_assign_launch
+    check_tensor(base, "base", torch.int32, (p, n), contiguous=True)
+    check_tensor(newc, "newc", torch.int32, (p, n), contiguous=True)
+    check_tensor(rows, "rows", torch.int32, (rows.shape[0],), contiguous=True)
+    fn = lib.d2_assign_list_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(adj_cidx.data_ptr(), ext_adj_cidx.data_ptr(), base.data_ptr(), bps,
-             active.data_ptr(), aps, color_tab.data_ptr(), tps,
-             out_colors.data_ptr(), out_base.data_ptr(), p, n, t, w,
-             int(partial_d2), torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(adj_cidx.data_ptr(), ext_adj_cidx.data_ptr(), color_tab.data_ptr(), tps,
+             rows.data_ptr(), rows.shape[0], newc.data_ptr(), base.data_ptr(),
+             p, n, t, w, int(partial_d2),
+             torch.cuda.current_stream(adj_cidx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"d2_assign: kernel launch failed with CUDA error {err}")
-    d2_assign.launches += 1
-    return out_colors, out_base
+    return rows.shape[0] > 0
 
 
 d2_assign.launches = 0

@@ -80,9 +80,14 @@ def test_d2_forbidden_plain_matches_pallas_and_ref(n, w, g, parts, partial_d2):
 @pytest.mark.parametrize("parts", [1, 3])
 @pytest.mark.parametrize("partial_d2", [False, True])
 def test_d2_assign_plain_matches_pallas(n, w, g, parts, partial_d2):
+    """``d2_assign`` over the list of active uncolored rows, on a ``newc``
+    that starts as the rows' colors, equals ``d2_assign_ref`` over every
+    row, and both equal ``d2_assign_pallas``."""
     per, adj, tab, base, active, ext = _d2_inputs(n, w, g, parts)
     args = _t(adj, ext, tab, base, active)
-    got = d2_assign(*args, partial_d2=partial_d2)
+    rows = torch.from_numpy(np.flatnonzero(active & (tab[:, :n] == 0)).astype(np.int32))
+    got = d2_assign(*_t(adj, ext, tab, base.copy(), tab[:, :n].copy()), rows,
+                    partial_d2=partial_d2)
     for a, b in zip(got, d2_assign_ref(*args, partial_d2=partial_d2)):
         assert torch.equal(a, b) and a.dtype == torch.int32
     for p, (a, t, b, ac, *_) in enumerate(per):

@@ -13,15 +13,20 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.core.local import local_color_d1, local_color_d2
 from repro_torch.kernels._testing import (
-    D2_SHAPES, FLASH_SHAPES, ROUND_EDGES, ROUND_SHAPES, ROW_TOL, SCATTER_SHAPES, SHAPES,
-    max_row_error, random_ext, random_pairs, random_qkv, random_round, random_stacked,
-    round_edge, round_pairs,
+    D2_SHAPES, FIXED_POINT_SHAPES, FLASH_SHAPES, ROUND_EDGES, ROUND_SHAPES, ROW_TOL,
+    SCATTER_SHAPES, SHAPES, max_row_error, random_ext, random_fixed_point, random_pairs,
+    random_qkv, random_round, random_stacked, round_edge, round_pairs,
+)
+from repro_torch.kernels.collision import (
+    collision, collision_lists, collision_lists_ref, collision_ref,
 )
 from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
-from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_ref
+from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_list_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.fused_round import fused_round, fused_round_ref
+from repro_torch.kernels.ops import local_color_d1_cuda, local_color_d2_cuda
 from repro_torch.kernels.scatter import pair_scatter, pair_scatter_ref
 from repro_torch.kernels.vb_bit import vb_bit_assign, vb_bit_assign_ref
 
@@ -76,15 +81,117 @@ def test_conflict_kernel_matches_plain(card, n, w, g, parts, rd):
 @pytest.mark.parametrize("parts", [1, 3])
 @pytest.mark.parametrize("partial_d2", [False, True])
 def test_d2_assign_kernel_matches_plain(card, n, w, g, parts, partial_d2):
+    """The list form on every row, a random subset of rows, and none."""
     _, (adj, tab, base, active, *_) = random_stacked(n, w, g, 20, n * 7, parts)
-    args = _t(adj, random_ext(n, w, g, n, parts), tab, base, active, device=card)
-    before = d2_assign.launches
-    got = d2_assign(*args, partial_d2=partial_d2)
-    want = d2_assign_ref(*args, partial_d2=partial_d2)
-    torch.cuda.synchronize()
-    assert d2_assign.launches == before + 1
-    for a, b in zip(got, want):
+    args = _t(adj, random_ext(n, w, g, n, parts), tab, device=card)
+    rng = torch.Generator().manual_seed(n)
+    for listed in (torch.arange(parts * n), torch.randperm(parts * n, generator=rng)[:n // 2],
+                   torch.arange(0)):
+        rows = listed.to(torch.int32).to(card)
+        got = _t(base, tab[:, :n].copy(), device=card)
+        want = [x.clone() for x in got]
+        before = d2_assign.launches
+        d2_assign(*args, *got, rows, partial_d2=partial_d2)
+        d2_assign_list_ref(*args, *want, rows, partial_d2=partial_d2)
+        torch.cuda.synchronize()
+        assert d2_assign.launches == before + (len(rows) > 0)   # an empty list launches nothing
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _collision_case(n, w, g, parts, card, rng):
+    """A fixed point's state after an assignment: new colors on the active
+    uncolored rows of random_fixed_point's tables, every part running but
+    the last of three."""
+    adj, ext, th, tab, active, deg, gid = _t(*random_fixed_point(n, w, g, n + 1, parts),
+                                             device=card)
+    newc = tab[:, :n].clone()
+    todo = active & (newc == 0)
+    newc[todo] = torch.randint(0, 7, (int(todo.sum()),), generator=rng).to(card, torch.int32)
+    cur = torch.zeros(parts + 2, dtype=torch.int32, device=card)
+    cur[:parts] = todo.any(dim=1).to(torch.int32)
+    if parts == 3:
+        cur[2] = 0
+    return adj, th, tab, active, deg, gid, newc, cur
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,g", FIXED_POINT_SHAPES + [(64, 33, 9)])
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("blocks", ["one-hop", "two-hop", "both"])
+@pytest.mark.parametrize("rd", [True, False])
+def test_collision_kernel_matches_plain(card, n, w, g, parts, blocks, rd):
+    """Every active row listed, a list with part 0's rows left out, and an
+    empty list: the table, the verdicts, the counts and the rows left to
+    color (as sets: the kernel fills its list through atomics)."""
+    rng = torch.Generator().manual_seed(n + parts)
+    adj, th, tab, active, deg, gid, newc, cur = _collision_case(n, w, g, parts, card, rng)
+    lanes = {"one-hop": (adj, None), "two-hop": (th, None), "both": (th, adj)}[blocks]
+    every = torch.nonzero(active.reshape(-1))[:, 0].to(torch.int32)
+    for rows in (every, every[every >= n], every[:0]):
+        outs = []
+        for fn in (collision, collision_ref):
+            out = [tab.clone(), torch.zeros_like(cur), torch.ones_like(cur),
+                   torch.full((parts * n,), -1, dtype=torch.int32, device=card),
+                   torch.ones(len(rows), dtype=torch.bool, device=card)]
+            before = collision.launches
+            fn(*lanes, newc, out[0], deg, gid, rows, cur, *out[1:], recolor_degrees=rd)
+            torch.cuda.synchronize()
+            assert collision.launches == before + (fn is collision)
+            out[3] = out[3][:int(out[1][parts])].sort().values
+            outs.append(out)
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        assert not outs[0][2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,g,parts", [(*shape, parts) for shape in FIXED_POINT_SHAPES
+                                         for parts in (1, 3)] + [(8, 3, 4, 1100)])
+def test_collision_lists_kernel_matches_plain(card, n, w, g, parts):
+    """Also with more parts than the listing launch counts in shared memory."""
+    _, _, _, tab, active, *_ = _t(*random_fixed_point(n, w, g, n, parts), device=card)
+    outs = []
+    for fn in (collision_lists, collision_lists_ref):
+        rows, todo = (torch.full((parts * n,), -1, dtype=torch.int32, device=card)
+                      for _ in range(2))
+        counts = torch.zeros(parts + 2, dtype=torch.int32, device=card)
+        newc, base = (torch.zeros((parts, n), dtype=torch.int32, device=card)
+                      for _ in range(2))
+        before = collision.launches
+        fn(active, tab, rows, todo, counts, newc=newc, base=base)
+        torch.cuda.synchronize()
+        assert collision.launches == before + (fn is collision_lists)
+        outs.append((rows[:int(counts[parts + 1])].sort().values,
+                     todo[:int(counts[parts])].sort().values, counts, newc, base))
+    for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,g", FIXED_POINT_SHAPES)
+@pytest.mark.parametrize("problem", ["d1", "d2", "pd2"])
+@pytest.mark.parametrize("rd", [True, False])
+@pytest.mark.parametrize("max_iters", [1, 2, None])
+def test_fixed_points_match_plain_on_card(card, n, w, g, problem, rd, max_iters):
+    """The kernel-backed fixed points equal core/local.py's on the card, on
+    three parts that stop at different iterations (one never runs)."""
+    adj, ext, th, tab, active, deg, gid = _t(*random_fixed_point(n, w, g, n + 2, 3),
+                                             device=card)
+    kw = dict(recolor_degrees=rd)
+    if max_iters is not None:
+        kw["max_iters"] = max_iters
+    launches, before = collision.launches, tab.clone()
+    if problem == "d1":
+        got = local_color_d1_cuda(adj, tab, active, deg, gid, **kw)
+        want = local_color_d1(adj, tab, active, deg, gid, **kw)
+    else:
+        kw["partial_d2"] = problem == "pd2"
+        got = local_color_d2_cuda(adj, th, ext, tab, active, deg, gid, **kw)
+        want = local_color_d2(adj, th, tab, active, deg, gid, **kw)
+    torch.cuda.synchronize()
+    assert collision.launches >= launches + 2
+    assert torch.equal(got, want) and torch.equal(tab, before)
 
 
 @pytest.mark.cuda
