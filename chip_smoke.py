@@ -12,8 +12,9 @@ order it:
    every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with one ``[ptxas]`` line per
    kernel body (registers, static shared memory, spills); with
-   ``--baseline-csrc`` also another version's ``fused_round.cu`` and
-   ``d2_forbidden.cu`` (for example the parent commit's);
+   ``--baseline-csrc`` also another version's ``fused_round.cu``,
+   ``d2_forbidden.cu``, ``collision.cu`` and ``pair_scatter.cu`` (for
+   example the parent commit's);
 2. holds each coloring kernel to exact equality with its plain PyTorch
    version on the same CUDA tensors, on random inputs (the shapes of
    ``tests/test_kernels.py`` with 1 and 3 parts, both ``recolor_degrees``
@@ -23,7 +24,10 @@ order it:
    ``fused_round`` with ``(slot, color)`` pairs for d1 and d2; the list
    form of ``d2_assign`` on every row, a random subset and none;
    ``collision`` on every active row, a list with part 0 left out and an
-   empty one, over each lane block, and its listing launch), and
+   empty one, over each lane block, and its listing launch, and on 1 to
+   100 lanes a row over dense, sparse and empty lists; ``pair_scatter``'s
+   two bodies also on table rows that are not 16-byte aligned, one row and
+   many, all pads and no pads), and
    ``flash_attention`` within 2e-5 (float32) and 2e-2 (bf16) of its plain
    version on the card tests' shapes, every output row within 2e-2 of its
    norm (``[flash]``);
@@ -57,13 +61,15 @@ order it:
    them (``fused_round`` on d1's, with and without pairs, and, for
    ``PERF.md``, on d2's; ``d2_assign`` on a cold and a warm d2 request's
    first iteration, ``collision`` on the cold one's, beside the plain
-   test it replaces, ``collision_losers``; ``pair_scatter`` on the first
-   ``sparse_delta`` round's, beside the one PyTorch call that computes the
-   same function, ``torch.scatter``), holds them equal, computes each
-   kernel's bound from the bytes these inputs need it to move; splits
-   ``fused_round``'s time into detection (a launch with ``max_iters = 0``)
-   and fixed point (``[split]``), the baseline's beside it, and times the
-   baseline's ``d2_assign`` beside this one's;
+   test it replaces, ``collision_losers``, and on a cold d1 and the warm
+   d2 request's first iteration; ``pair_scatter`` on the first
+   ``sparse_delta`` round's, each body of its C entry, beside the one
+   PyTorch call that computes the same function, ``torch.scatter``),
+   holds them equal, computes each kernel's bound from the bytes these
+   inputs need it to move; splits ``fused_round``'s time into detection (a
+   launch with ``max_iters = 0``) and fixed point (``[split]``), the
+   baseline's beside it, and times the baseline's ``d2_assign``,
+   ``collision`` and ``pair_scatter`` beside this one's in turns;
 5. frees the coloring state and serves TinyLlama-1.1B at full width
    (random bf16 weights from ``--seed``) through ``ServeEngine``: a batch
    of four prompts (1,024, 700, 512, 64 tokens; 32 new) and one 16,384
@@ -110,6 +116,10 @@ LONG_NEW = 8
 # heads, dh 128) over one sequence of 4,096 tokens of random bf16 q, k, v.
 WIDE_ARCH = "qwen3_32b"
 WIDE_LEN = 4096
+# The sources --baseline-csrc builds from another version, each timed in
+# turns beside this one's (their C entries must take this source's
+# arguments).
+BASELINE_SOURCES = ("fused_round", "d2_forbidden", "collision", "pair_scatter")
 VALIDATORS = {"d1": "is_proper_d1", "d1_2gl": "is_proper_d1",
               "d2": "is_proper_d2", "pd2": "is_proper_pd2"}
 
@@ -222,8 +232,9 @@ def check_equal(name, got, want) -> int:
 def kernel_vs_plain_grid(device) -> dict[str, int]:
     """Random cases of every kernel against its plain version; case counts."""
     from repro_torch.kernels._testing import (
-        D2_SHAPES, FIXED_POINT_SHAPES, FLASH_SHAPES, ROUND_SHAPES, ROW_TOL, SCATTER_SHAPES,
-        SHAPES, random_ext, random_fixed_point, random_pairs, random_round, round_pairs,
+        COLLISION_EDGES, D2_SHAPES, FIXED_POINT_SHAPES, FLASH_SHAPES, ROUND_SHAPES, ROW_TOL,
+        SCATTER_EDGES, SCATTER_SHAPES, SHAPES, random_ext, random_fixed_point, random_pairs,
+        random_round, round_pairs, scatter_edge,
     )
     from repro_torch.kernels.conflict import conflict_detect, conflict_detect_ref
     from repro_torch.kernels.d2_forbidden import d2_assign, d2_assign_list_ref
@@ -268,6 +279,8 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
         for parts in (1, 3):
             cases["collision"] += collision_grid(
                 to_device(random_fixed_point(n, w, g, n + 1, parts), device), n + parts)
+    for n, wa, wb, g in COLLISION_EDGES:
+        cases["collision"] += collision_edges(n, wa, wb, g, device)
     for n, w, g, real in ROUND_SHAPES:
         for parts in (1, 3):
             adj, th, colors, ghost, deg, gid, bd = to_device(
@@ -292,6 +305,12 @@ def kernel_vs_plain_grid(device) -> dict[str, int]:
         args = to_device(random_pairs(rows, s, c, rows + s + c, k=k), device)
         check_equal(f"pair_scatter {rows, s, c, k}", pair_scatter(*args),
                     pair_scatter_ref(*args))
+        cases["pair_scatter"] += 1
+    for rows, s, c, k, ps, off in SCATTER_EDGES:
+        wide, slots, vals = to_device(scatter_edge(rows, s, c, k, ps, off, rows + s + c), device)
+        table = wide[:, off:off + s]
+        check_equal(f"pair_scatter {rows, s, c, k, ps, off}", pair_scatter(table, slots, vals),
+                    pair_scatter_ref(table, slots, vals))
         cases["pair_scatter"] += 1
     t0 = time.perf_counter()
     worst = flash_grid(device)
@@ -355,6 +374,36 @@ def collision_grid(inputs, seed) -> int:
     return cases
 
 
+def collision_edges(n, wa, wb, g, device) -> int:
+    """``collision`` against its plain version on one ``COLLISION_EDGES`` shape (three parts, the last
+    stopped) over a dense, a sparse (shuffled) and an empty list, both
+    ``recolor_degrees``; returns the case count."""
+    import torch
+
+    from repro_torch.kernels._testing import collision_lists_of, random_collision
+    from repro_torch.kernels.collision import collision, collision_ref
+
+    drawn = random_collision(n, wa, wb, g, n + wa + wb, 3)
+    lanes_a, lanes_b, tab, _, deg, gid, newc, cur = (
+        None if x is None else torch.from_numpy(x).to(device) for x in drawn)
+    cases = 0
+    for kind, listed in collision_lists_of(drawn[3], n).items():
+        rows = torch.from_numpy(listed).to(device)
+        for rd in (True, False):
+            got = []
+            for fn in (collision, collision_ref):
+                out = [tab.clone(), torch.zeros_like(cur), torch.ones_like(cur),
+                       torch.full((3 * n,), -1, dtype=torch.int32, device=device),
+                       torch.ones(len(rows), dtype=torch.bool, device=device)]
+                fn(lanes_a, lanes_b, newc, out[0], deg, gid, rows, cur, *out[1:],
+                   recolor_degrees=rd)
+                out[3] = out[3][:int(out[1][3])].sort().values
+                got.append(out)
+            check_equal(f"collision {n, wa, wb, g} {kind} list {rd}", *got)
+            cases += 1
+    return cases
+
+
 def flash_grid(device) -> dict:
     """``flash_attention`` against its plain version on the card tests'
     shapes, each in float32 (2e-5) and bfloat16 (2e-2, against the fp32
@@ -402,6 +451,38 @@ def time_ms(fn, reps: int, batches: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps: int, batches: int = 3) -> float:
+    """Device time of one call, the host taken out: ``reps`` calls captured
+    in one CUDA graph, the graph replayed between CUDA events, divided by
+    ``reps``; the median of ``batches`` replays, after two warm-up calls on
+    a side stream and one replay."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.empty_cache()
     return float(np.median(times))
 
 
@@ -844,37 +925,73 @@ def time_d2_assign(label, st, state, reps, baseline=None) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
-def time_collision(st, state, reps) -> dict:
-    """``collision`` on a cold d2 request's first iteration (after its
-    ``d2_assign``), against its plain version, the whole-table test it
-    replaced (``collision_losers`` over both blocks and the ``where`` that
-    zeroed the losers, as ``local_color_d2_cuda`` ran them) and its bytes
-    bound.  Returns the measured keys of its ``{"kernels": [...]}`` entry."""
+def d1_first_iteration(plan, device):
+    """The state of a cold d1 request's first local iteration on the
+    ``cuda`` backend (``kernels/ops.py::local_color_d1_cuda``): ``(tab,
+    newc, rows, counts)`` after the listing launch (``rows`` every active
+    row) and the first ``vb_bit`` launch (``newc``)."""
     import torch
 
-    from repro_torch.core.local import collision_losers
-    from repro_torch.kernels.collision import collision, collision_ref
+    from repro_torch.core.distributed import _table
+    from repro_torch.kernels.collision import collision_lists
+    from repro_torch.kernels.vb_bit import vb_bit_assign
+
+    c0, g0, a0, _ = plan.request_inputs()
+    c0, g0, a0 = to_device((c0, g0, a0), device)
+    tab = _table(c0, g0)
+    p, n = a0.shape
+    i32 = dict(dtype=torch.int32, device=device)
+    rows, counts = torch.empty(p * n, **i32), torch.zeros((3, p + 2), **i32)
+    collision_lists(a0, tab, rows, None, counts[0])
+    newc, _ = vb_bit_assign(plan._st["adj_cidx"], tab[:, :n], torch.ones_like(c0), a0, tab)
+    return tab, newc, rows[:int(counts[0, p + 1])], counts
+
+
+def d2_collision_inputs(st, state):
+    """``(tab, newc, rows, counts)`` of ``collision`` on a d2 first iteration
+    (``d2_first_iteration``), after its ``d2_assign``."""
     from repro_torch.kernels.d2_forbidden import d2_assign
 
-    tab, active, base, newc, todo, rows, counts = state
+    tab, _, base, newc, todo, rows, counts = state
     newc, base = newc.clone(), base.clone()
     d2_assign(st["adj_cidx"], st["ext_adj_cidx"], tab, base, newc, todo)
+    return tab, newc, rows, counts
+
+
+def time_collision(label, st, blocks, inputs, reps, baseline=None, old_test=None) -> dict:
+    """``collision`` on one first iteration's ``inputs`` (``(tab, newc,
+    rows, counts)``: ``rows`` every active row, ``counts`` the listing
+    launch's three count rows) over the lane ``blocks`` (``lanes_a``,
+    ``lanes_b`` or None), against its plain version and its bytes bound;
+    ``old_test(tab, newc)``, the whole-table test it replaced, timed beside
+    it; with ``baseline`` (another version's library) both timed in turns,
+    baseline, this, this, baseline, after holding the baseline equal.
+    Returns the measured keys of its ``{"kernels": [...]}`` entry."""
+    import torch
+
+    from repro_torch.kernels.collision import collision, collision_ref, launch_kernel
+
+    tab, newc, rows, counts = inputs
     p, n = newc.shape
-    blocks = (st["two_hop_cidx"], st["adj_cidx"])
     lose = torch.empty(len(rows), dtype=torch.bool, device=tab.device)
-    got, want = [], []
-    for fn, out in ((collision, got), (collision_ref, want)):
+    got = {}
+    runs = {"this": collision, "plain": collision_ref}
+    if baseline is not None:
+        runs["baseline"] = lambda *args, **kw: launch_kernel(baseline, *args, **kw)
+    for name, fn in runs.items():
         c = counts.clone()
         c[1:] = 0
         t = tab.clone()
         fn(*blocks, newc, t, st["deg_tab"], st["gid_tab"], rows, c[0], c[1], c[2],
-           todo.new_empty(p * n), lose, recolor_degrees=True)
-        out += [t, lose.clone(), c[1]]
-    err = check_equal("collision on a cold d2 first iteration", got, want)
+           rows.new_empty(p * n), lose, recolor_degrees=True)
+        got[name] = [t, lose.clone(), c[1]]
+    err = check_equal(f"collision {label}", got["this"], got["plain"])
+    if baseline is not None:
+        check_equal(f"collision {label}: baseline against this", got["baseline"], got["this"])
     c = counts.clone()
     c[1:] = 0
     t = tab.clone()
-    left = todo.new_empty(p * n)
+    left = rows.new_empty(p * n)
     flip = [1, 2]
 
     def call(fn):               # each call adds into the row the last one zeroed
@@ -882,30 +999,106 @@ def time_collision(st, state, reps) -> dict:
         fn(*blocks, newc, t, st["deg_tab"], st["gid_tab"], rows, c[0], c[flip[0]],
            c[flip[1]], left, lose, recolor_degrees=True)
 
-    def old_test():
+    extra = ""
+    if old_test is not None:
+        if not torch.equal(old_test(tab, newc), got["this"][0]):
+            raise AssertionError("collision: the table differs from collision_losers'")
+        extra = (f"collision_losers over both blocks + where (the test it replaced) "
+                 f"{time_ms(lambda: old_test(tab, newc), 3):.4f} ms, ")
+    ms = time_ms(lambda: call(collision), reps)
+    plain_ms = time_ms(lambda: call(collision_ref), 3)
+    nbytes = collision_bytes([b for b in blocks if b is not None], newc, tab, st["deg_tab"],
+                             st["gid_tab"], rows, counts[0], True)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[time] collision {label}: {len(rows)} rows tested, {int(got['this'][2][p])} left "
+        f"to color; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {extra}bound "
+        f"{bound_ms:.4f} ms ({nbytes} B over 3.35 TB/s), {bound_ms / ms:.1%} of the bound")
+    if baseline is not None:
+        times = {}
+        for name in ("baseline", "this", "this", "baseline"):
+            times.setdefault(name, []).append(time_ms(lambda: call(runs[name]), reps))
+        log(f"[time] collision {label}, A/B in turns: baseline source "
+            f"{np.mean(times['baseline']):.4f} ms, this source {np.mean(times['this']):.4f} ms "
+            f"(means of 2: {times})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def whole_table_test(st, active):
+    """The d2 test the collision kernel replaced, as ``local_color_d2_cuda``
+    ran it: ``collision_losers`` over both blocks on the table holding the
+    new colors, and the ``where`` that zeroed the active losers."""
+    import torch
+
+    from repro_torch.core.local import collision_losers
+
+    def old_test(tab, newc):
+        n = newc.shape[-1]
         table = tab.clone()
         table[:, :n] = newc
-        lost = collision_losers(newc, table, blocks[0], st["deg_tab"], st["gid_tab"],
-                                recolor_degrees=True)
-        lost |= collision_losers(newc, table, blocks[1], st["deg_tab"], st["gid_tab"],
-                                 recolor_degrees=True)
+        lost = torch.zeros_like(active)
+        for lanes in (st["two_hop_cidx"], st["adj_cidx"]):
+            lost |= collision_losers(newc, table, lanes, st["deg_tab"], st["gid_tab"],
+                                     recolor_degrees=True)
         table[:, :n] = torch.where(active & lost, 0, newc)
         return table
 
-    if not torch.equal(old_test(), got[0]):
-        raise AssertionError("collision: the table differs from collision_losers'")
-    ms = time_ms(lambda: call(collision), reps)
-    plain_ms = time_ms(lambda: call(collision_ref), 3)
-    old_ms = time_ms(old_test, 3)
-    nbytes = collision_bytes(blocks, newc, tab, st["deg_tab"], st["gid_tab"], rows,
-                             counts[0], True)
+    return old_test
+
+
+def time_pair_scatter(ps_args, reps, baseline=None) -> dict:
+    """``pair_scatter`` on the first ``sparse_delta`` round's inputs against
+    its plain version and its bytes bound, the one PyTorch call that
+    computes the same function (``torch.scatter``, its ``library_ms``), the
+    table's copy and a read of the slots alone, and, with ``baseline``
+    (another version's library), both sources in turns, baseline, this,
+    this, baseline, after holding the baseline equal.  A call's device work
+    (about 0.05 ms) is of the order of its host cost, so every time here is
+    ``graph_ms``'s; the wrapper's back-to-back ``time_ms`` is logged beside
+    it.  Returns the measured keys of its ``{"kernels": [...]}`` entry."""
+    import torch
+
+    from repro_torch.kernels.scatter import launch_kernel, pair_scatter, pair_scatter_ref
+
+    table, slots, vals = ps_args
+    width = table.shape[-1]
+    log(f"[time] pair_scatter first sparse_delta round: table {tuple(table.shape)}, "
+        f"{int((slots < width).sum())} real pairs")
+    want = pair_scatter_ref(*ps_args)
+    err = check_equal("pair_scatter main-path inputs", pair_scatter(*ps_args), want)
+    ms = graph_ms(lambda: pair_scatter(*ps_args), reps)
+    plain_ms = graph_ms(lambda: pair_scatter_ref(*ps_args), reps)
+    nbytes = pair_scatter_bytes(table, slots)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[time] collision cold d2 first iteration: {len(rows)} rows tested, "
-        f"{int(got[2][p])} left to color; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"collision_losers over both blocks + where (the test it replaced) {old_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({nbytes} B over 3.35 TB/s), {bound_ms / ms:.1%} of the "
-        "bound")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+    log(f"[time] pair_scatter: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device, a CUDA "
+        f"graph of {reps} calls), bound {bound_ms:.4f} ms ({nbytes} B over 3.35 TB/s), "
+        f"{bound_ms / ms:.1%} of the bound; with the host's launch (back-to-back calls) "
+        f"{time_ms(lambda: pair_scatter(*ps_args), reps):.4f} ms")
+    # The one PyTorch call that computes the same function: an out-of-place
+    # scatter with the pads routed to a spare column.
+    spare = torch.cat([table, torch.zeros_like(table[..., :1])], dim=-1)
+    idx = torch.where(slots < width, slots, width).to(torch.int64)
+    check_equal("pair_scatter against torch.scatter",
+                torch.scatter(spare, -1, idx, vals)[..., :width], want)
+    library_ms = graph_ms(lambda: torch.scatter(spare, -1, idx, vals), reps)
+    # The kernel's two phases, each done alone by PyTorch: the table's copy,
+    # and a read of every slot.
+    copy_ms = graph_ms(lambda: table.clone(memory_format=torch.contiguous_format), reps)
+    slots_ms = graph_ms(lambda: slots.amax(), reps)
+    log(f"[time] pair_scatter device: torch.scatter {library_ms:.4f} ms; the table's copy "
+        f"alone {copy_ms:.4f} ms, a read of the slots alone {slots_ms:.4f} ms, the two in "
+        f"series {copy_ms + slots_ms:.4f} ms")
+    if baseline is not None:
+        runs = {"baseline": lambda: launch_kernel(baseline, *ps_args),
+                "this": lambda: pair_scatter(*ps_args)}
+        check_equal("pair_scatter: baseline against this", runs["baseline"](), want)
+        times = {}
+        for name in ("baseline", "this", "this", "baseline"):
+            times.setdefault(name, []).append(graph_ms(runs[name], reps))
+        log(f"[time] pair_scatter, A/B in turns (device): baseline source "
+            f"{np.mean(times['baseline']):.4f} ms, this source {np.mean(times['this']):.4f} ms "
+            f"(means of 2: {times})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms}
 
 
 def kernel_entry(name, src, replaces, measured) -> dict:
@@ -1265,9 +1458,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed calls per kernel")
     ap.add_argument("--baseline-csrc", default=None,
                     help="a directory with another version's fused_round.cu, "
-                         "d2_forbidden.cu and *.cuh (for example the parent commit's "
-                         "src/repro_torch/csrc): its fused_round detection / fixed-point "
-                         "split and its d2_assign are timed beside this one's")
+                         "d2_forbidden.cu, collision.cu, pair_scatter.cu and *.cuh (for "
+                         "example the parent commit's src/repro_torch/csrc): its fused_round "
+                         "detection / fixed-point split, d2_assign, collision and "
+                         "pair_scatter are timed beside this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -1324,9 +1518,9 @@ def run(device, args) -> int:
         from pathlib import Path
 
         t0 = time.perf_counter()
-        paths = build.build(("fused_round", "d2_forbidden"), csrc=Path(args.baseline_csrc))
+        paths = build.build(BASELINE_SOURCES, csrc=Path(args.baseline_csrc))
         baseline = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
-        log(f"[build] fused_round and d2_forbidden of {args.baseline_csrc} in "
+        log(f"[build] {', '.join(BASELINE_SOURCES)} of {args.baseline_csrc} in "
             f"{time.perf_counter() - t0:.1f} s")
 
     # -- 2. kernel vs plain on random inputs ---------------------------------
@@ -1444,6 +1638,9 @@ def run(device, args) -> int:
                 {"problem": "d1"}, fp_bytes, args.reps)
     fused_round_split("d1 with pairs", pair_args, {"problem": "d1"}, args.reps,
                      baseline.get("fused_round"))
+    # collision on the cold d1 request's first iteration (every row active).
+    time_collision("d1 cuda cold first iteration", st, (st["adj_cidx"], None),
+                   d1_first_iteration(plan, device), args.reps, baseline.get("collision"))
     del plan, st, vb_args, cf_args, tab, ctab, colors, ghost, pair_args, pslots
 
     # d1, cuda_fused: the same four requests.
@@ -1496,28 +1693,11 @@ def run(device, args) -> int:
             # pair_scatter: the first exchange of the cold request.
             colors, ghost = first_round_inputs(xplan, "d1", device)
             ps_args = first_pairs(xplan, colors, ghost)
-            table, slots, vals = ps_args
-            width = table.shape[-1]
-            log(f"[time] pair_scatter first sparse_delta round: table "
-                f"{tuple(table.shape)}, {int((slots < width).sum())} real pairs")
-            measured = time_kernel("pair_scatter", pair_scatter, pair_scatter_ref, ps_args,
-                                   {}, pair_scatter_bytes(table, slots), args.reps)
-            # The one PyTorch call that computes the same function: an
-            # out-of-place scatter with the pads routed to a spare column.
-            spare = torch.cat([table, torch.zeros_like(table[..., :1])], dim=-1)
-            idx = torch.where(slots < width, slots, width).to(torch.int64)
-            check_equal("pair_scatter against torch.scatter",
-                        torch.scatter(spare, -1, idx, vals)[..., :width],
-                        pair_scatter(*ps_args))
-            measured["library_ms"] = time_ms(lambda: torch.scatter(spare, -1, idx, vals),
-                                             args.reps)
-            log(f"[time] pair_scatter library call (torch.scatter): "
-                f"{measured['library_ms']:.4f} ms")
             entries["pair_scatter"] = {
                 **kernel_entry("pair_scatter", "src/repro_torch/csrc/pair_scatter.cu",
-                               "src/repro/kernels/scatter.py:62", measured),
-                "library_ms": measured["library_ms"]}
-            del colors, ghost, ps_args, table, slots, vals, spare, idx
+                               "src/repro/kernels/scatter.py:62", {}),
+                **time_pair_scatter(ps_args, args.reps, baseline.get("pair_scatter"))}
+            del colors, ghost, ps_args
         del xplan
     del pg
     log(f"[memory] d1: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
@@ -1577,15 +1757,22 @@ def run(device, args) -> int:
                     "src/repro/kernels/d2_forbidden.py:89",
                     time_d2_assign("cold d2 first iteration", st, cold, args.reps,
                                    baseline.get("d2_forbidden")))
+                d2_blocks = (st["two_hop_cidx"], st["adj_cidx"])
                 entries["collision"] = kernel_entry(
                     "collision", "src/repro_torch/csrc/collision.cu",
                     "none: src/repro/kernels/ops.py:72-80, :146-160 (jnp)",
-                    time_collision(st, cold, args.reps))
+                    time_collision("cold d2 first iteration", st, d2_blocks,
+                                   d2_collision_inputs(st, cold), args.reps,
+                                   baseline.get("collision"),
+                                   whole_table_test(st, cold[1])))
                 del cold
                 warm = d2_first_iteration(kplan, device, masks[0], c0)
                 time_d2_assign("warm 10% d2 first iteration", st, warm, args.reps,
                                baseline.get("d2_forbidden"))
-                del st, warm
+                time_collision("warm 10% d2 first iteration", st, d2_blocks,
+                               d2_collision_inputs(st, warm), args.reps,
+                               baseline.get("collision"))
+                del st, warm, d2_blocks
             if problem == "d2" and backend == "cuda_fused":
                 # fused_round on d2: the first round of the cold run, timed
                 # for PERF.md beside the d1 entry of the kernels line.

@@ -11,7 +11,8 @@ and the model's attention.
   ghosts, detect, zero losers, recolor fixed point) in one cooperative
   launch
 * ``pair_scatter`` -- ``(slot, value)`` pairs stored into slot tables (the
-  receive step of the sparse exchanges)
+  receive step of the sparse exchanges), one launch of thread-block
+  clusters
 * ``flash_attention`` -- causal or full GQA attention with an online
   softmax (``repro``'s ``kernels.ops.flash_attention``)
 

@@ -10,7 +10,8 @@ import numpy as np
 __all__ = ["SHAPES", "D2_SHAPES", "ROUND_SHAPES", "ROUND_EDGES", "SCATTER_SHAPES",
            "FLASH_SHAPES", "ROW_TOL", "max_row_error", "random_part", "random_stacked",
            "random_ext", "random_round", "round_edge", "random_pairs", "round_pairs",
-           "random_qkv", "FIXED_POINT_SHAPES", "random_fixed_point"]
+           "random_qkv", "FIXED_POINT_SHAPES", "random_fixed_point", "SCATTER_EDGES",
+           "scatter_edge", "COLLISION_EDGES", "random_collision", "collision_lists_of"]
 
 # (rows, lanes, ghosts) of tests/test_kernels.py.
 SHAPES = [(16, 3, 8), (100, 7, 40), (256, 1, 1), (515, 12, 200), (64, 33, 9)]
@@ -27,6 +28,26 @@ ROUND_SHAPES = [(100, 7, 40, True), (515, 5, 200, True), (256, 4, 1, False),
 SCATTER_SHAPES = [(1, 16, 5, None), (3, 100, 100, None), (4, 257, 64, None),
                   (2, 512, 1, None), (64, 300, 300, None), (5, 40, 40, 0),
                   (7, 33, 33, 33)]
+# (rows, S, C, real pairs per row or None = random, table row stride,
+# table offset into its row, offset + S <= stride) of the pair-scatter edge cases: S no multiple of 4; a
+# table row stride that leaves rows unaligned, and a table view that starts
+# off a 16-byte boundary; one row over several blocks of a cluster (5, and
+# the 8 of the largest cluster); more rows than one cluster or one block
+# covers (20 clusters of 3 blocks; 300 rows of 16 words, two blocks of 256
+# rows); C below and above S; all pads; every slot real.
+SCATTER_EDGES = [(3, 131, 131, None, 131, 0), (4, 100, 100, None, 103, 0),
+                 (3, 257, 64, None, 260, 1), (1, 20000, 20000, None, 20000, 0),
+                 (1, 40000, 12000, None, 40003, 3), (20, 9000, 9000, None, 9000, 0),
+                 (300, 16, 16, None, 16, 0), (5, 1000, 37, None, 1000, 0),
+                 (2, 50, 300, None, 50, 0), (6, 5000, 5000, 0, 5000, 0),
+                 (4, 4099, 4099, 4099, 4099, 0)]
+# (rows, lanes_a, lanes_b, ghosts) of the collision edge cases: 1, 6, 8, 9,
+# 17, 33, 42 (two-hop 36 and one-hop 6, as d2 on a hex mesh), 64 and 100
+# lanes a row, on both sides of the kernel's first 8 lanes and of its
+# chunks of 40 lanes beyond them.
+COLLISION_EDGES = [(300, 1, 0, 100), (300, 6, 0, 120), (200, 8, 0, 60), (200, 5, 4, 60),
+                   (200, 9, 8, 60), (200, 33, 0, 80), (200, 36, 6, 90), (150, 64, 0, 60),
+                   (120, 60, 40, 50)]
 # The fused-round edge cases, each at d1, d2 and pd2, with and without
 # pairs: (name, rows, lanes, ghosts) for :func:`round_edge`.
 ROUND_EDGES = [("all_lose", 300, 5, 120), ("none_lose", 300, 5, 120),
@@ -229,3 +250,44 @@ def random_qkv(b, lq, lk, hq, hkv, dh, seed):
     return (rng.standard_normal((b, lq, hq, dh), dtype=np.float32),
             rng.standard_normal((b, lk, hkv, dh), dtype=np.float32),
             rng.standard_normal((b, lk, hkv, dh), dtype=np.float32))
+
+
+def scatter_edge(rows, s, c, k, ps, off, seed):
+    """One :data:`SCATTER_EDGES` case: ``(wide, slots, values)`` int32, the
+    table being ``wide[:, off:off + s]`` (row stride ``ps``), drawn as
+    :func:`random_pairs` draws it."""
+    table, slots, vals = random_pairs(rows, s, c, seed, k=k)
+    wide = np.zeros((rows, ps), np.int32)
+    wide[:, off:off + s] = table
+    return wide, slots, vals
+
+
+def random_collision(n, wa, wb, g, seed, parts):
+    """One :data:`COLLISION_EDGES` case on ``parts`` parts, drawn per part as
+    :func:`random_fixed_point` draws its tables: ``(lanes_a, lanes_b or
+    None, tab, active, deg_tab, gid_tab, newc, cur)``.  Lanes are random
+    entries of the table (asymmetric; a row may name itself), colors come
+    from a few values so that many lanes collide, the active uncolored rows
+    take a new color in ``0..6`` (0: none) and every other row keeps its
+    own; every part runs but the last of three."""
+    _, (_, tab, _, active, deg, gid, _) = random_stacked(n, 1, g, 6, seed, parts)
+    rng = np.random.default_rng(seed + 3)
+    lanes_a = rng.integers(0, n + g + 1, (parts, n, wa)).astype(np.int32)
+    lanes_b = rng.integers(0, n + g + 1, (parts, n, wb)).astype(np.int32) if wb else None
+    newc = tab[:, :n].copy()
+    todo = active & (newc == 0)
+    newc[todo] = rng.integers(0, 7, int(todo.sum()))
+    cur = np.zeros(parts + 2, np.int32)
+    cur[:parts] = todo.any(axis=1)
+    if parts == 3:
+        cur[2] = 0
+    return lanes_a, lanes_b, tab, active, deg, gid, newc, cur
+
+
+def collision_lists_of(active, seed):
+    """``{"dense": every active row in order, "sparse": a seventh of them
+    shuffled, "empty": none}``, int32 entries ``p * R + r``."""
+    every = np.flatnonzero(active).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    return {"dense": every, "sparse": rng.permutation(every)[:len(every) // 7],
+            "empty": every[:0]}

@@ -34,7 +34,8 @@ from repro_torch.core.conflict import v_loses
 from repro_torch.kernels import check_tensor, on_cpu
 from repro_torch.kernels.build import load
 
-__all__ = ["collision", "collision_lists", "collision_ref", "collision_lists_ref"]
+__all__ = ["collision", "collision_lists", "collision_ref", "collision_lists_ref",
+           "launch_kernel"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -100,8 +101,10 @@ def collision_lists(
             check_tensor(x, name, torch.int32, (p, r), contiguous=True)
     if r > t:
         raise ValueError(f"color_tab: {t} entries cannot hold {r} rows")
-    _launch(None, 0, None, 0, None, color_tab, tps, None, None, 0, active, aps,
-            None, 0, None, nxt, None, rows_out, todo, newc, base, None, p, r, True)
+    _launch(load("collision"), None, 0, None, 0, None, color_tab, tps, None, None, 0, active,
+            aps, None, 0, None, nxt, None, rows_out, todo, newc, base, None, p, r, True)
+    if p * r > 0:
+        collision.launches += 1
 
 
 def _lose_rows(lanes, newc, table, deg_tab, gid_tab, e, parts, r, *, recolor_degrees):
@@ -168,6 +171,17 @@ def collision(
     if on_cpu(*tensors):
         return collision_ref(lanes_a, lanes_b, newc, color_tab, deg_tab, gid_tab, rows,
                              cur, nxt, spare, todo, lose, recolor_degrees=recolor_degrees)
+    launch_kernel(load("collision"), lanes_a, lanes_b, newc, color_tab, deg_tab, gid_tab,
+                  rows, cur, nxt, spare, todo, lose, recolor_degrees=recolor_degrees)
+    collision.launches += 1
+
+
+def launch_kernel(lib, lanes_a, lanes_b, newc, color_tab, deg_tab, gid_tab, rows, cur, nxt,
+                  spare, todo, lose, *, recolor_degrees=True) -> None:
+    """One testing launch of ``lib``'s ``collision_launch`` on CUDA tensors,
+    as :func:`collision` makes it; counts no launch.  ``lib`` is the loaded
+    library of ``csrc/collision.cu`` (``chip_smoke.py`` also passes the
+    build of another version of that source, to time the two)."""
     p, r, ka = lanes_a.shape
     t = color_tab.shape[-1]
     check_tensor(lanes_a, "lanes_a", torch.int32, (p, r, ka), contiguous=True)
@@ -189,22 +203,22 @@ def collision(
     check_tensor(lose, "lose", torch.bool, (n,), contiguous=True)
     if r > t:
         raise ValueError(f"color_tab: {t} entries cannot hold {r} rows")
-    _launch(lanes_a, ka, lanes_b, kb, newc, color_tab, tps, deg_tab, gid_tab, dps,
+    _launch(lib, lanes_a, ka, lanes_b, kb, newc, color_tab, tps, deg_tab, gid_tab, dps,
             None, 0, rows, n, cur, nxt, spare, None, todo, None, None, lose, p, r,
             recolor_degrees)
 
 
-def _launch(lanes_a, ka, lanes_b, kb, newc, tab, tps, deg, gid, dps, active, aps,
+def _launch(lib, lanes_a, ka, lanes_b, kb, newc, tab, tps, deg, gid, dps, active, aps,
             rows, n_list, cur, nxt, spare, rows_out, todo, newc_out, base_out, lose,
             p, r, recolor_degrees) -> None:
-    """One launch of ``collision_launch`` (``rows`` None: a listing launch;
-    an empty list has a null pointer, so the kind is passed on its own).
-    A testing launch always runs (it zeroes ``spare``); a listing launch
-    over no rows launches nothing and is not counted."""
+    """One launch of ``lib.collision_launch`` (``rows`` None: a listing
+    launch; an empty list has a null pointer, so the kind is passed on its
+    own).  A testing launch always runs (it zeroes ``spare``); a listing
+    launch over no rows launches nothing."""
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    fn = load("collision").collision_launch
+    fn = lib.collision_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(ptr(lanes_a), ka, ptr(lanes_b), kb, ptr(newc), ptr(tab), tps, ptr(deg),
              ptr(gid), dps, ptr(active), aps, ptr(rows), n_list, ptr(cur), ptr(nxt),
@@ -213,8 +227,6 @@ def _launch(lanes_a, ka, lanes_b, kb, newc, tab, tps, deg, gid, dps, active, aps
              torch.cuda.current_stream(tab.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"collision: kernel launch failed with CUDA error {err}")
-    if rows is not None or p * r > 0:
-        collision.launches += 1
 
 
 collision.launches = 0

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import check_tensor, on_cpu
 from repro_torch.kernels.build import load
 
-__all__ = ["pair_scatter", "pair_scatter_ref"]
+__all__ = ["pair_scatter", "pair_scatter_ref", "launch_kernel"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -63,6 +63,18 @@ def pair_scatter(
     """
     if on_cpu(table, slots, values):
         return pair_scatter_ref(table, slots, values)
+    out = launch_kernel(load("pair_scatter"), table, slots, values)
+    if slots.numel():
+        pair_scatter.launches += 1
+    return out
+
+
+def launch_kernel(lib, table, slots, values) -> torch.Tensor:
+    """One call of ``lib``'s C entry on CUDA tensors, as :func:`pair_scatter`
+    makes it; counts no launch.  ``lib`` is the loaded library of
+    ``csrc/pair_scatter.cu`` (``chip_smoke.py`` also passes the build of
+    another version of that source, to time the two).  No pairs: the table
+    is copied and no kernel runs."""
     _check_shapes(table, slots, values)
     s, c = table.shape[-1], slots.shape[-1]
     tab2 = table.reshape(-1, s)
@@ -73,14 +85,12 @@ def pair_scatter(
     check_tensor(sl2, "slots", torch.int32, (r, c), contiguous=True)
     check_tensor(va2, "values", torch.int32, (r, c), contiguous=True)
     out = torch.empty((r, s), dtype=torch.int32, device=table.device)
-    fn = load("pair_scatter").pair_scatter_launch
+    fn = lib.pair_scatter_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(tab2.data_ptr(), tps, sl2.data_ptr(), va2.data_ptr(), out.data_ptr(),
              r, s, c, torch.cuda.current_stream(table.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pair_scatter: kernel launch failed with CUDA error {err}")
-    if r * c:
-        pair_scatter.launches += 1
     return out.view(table.shape)
 
 

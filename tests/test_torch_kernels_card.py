@@ -15,9 +15,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.core.local import local_color_d1, local_color_d2
 from repro_torch.kernels._testing import (
-    D2_SHAPES, FIXED_POINT_SHAPES, FLASH_SHAPES, ROUND_EDGES, ROUND_SHAPES, ROW_TOL,
-    SCATTER_SHAPES, SHAPES, max_row_error, random_ext, random_fixed_point, random_pairs,
-    random_qkv, random_round, random_stacked, round_edge, round_pairs,
+    COLLISION_EDGES, D2_SHAPES, FIXED_POINT_SHAPES, FLASH_SHAPES, ROUND_EDGES, ROUND_SHAPES,
+    ROW_TOL, SCATTER_EDGES, SCATTER_SHAPES, SHAPES, collision_lists_of, max_row_error,
+    random_collision, random_ext, random_fixed_point, random_pairs, random_qkv, random_round,
+    random_stacked, round_edge, round_pairs, scatter_edge,
 )
 from repro_torch.kernels.collision import (
     collision, collision_lists, collision_lists_ref, collision_ref,
@@ -143,6 +144,34 @@ def test_collision_kernel_matches_plain(card, n, w, g, parts, blocks, rd):
         for a, b in zip(*outs):
             assert torch.equal(a, b)
         assert not outs[0][2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,wa,wb,g", COLLISION_EDGES)
+@pytest.mark.parametrize("rd", [True, False])
+def test_collision_kernel_edges_match_plain(card, n, wa, wb, g, rd):
+    """Lane counts on both sides of the kernel's first lanes and lane
+    chunks, on three parts (the last stopped) with asymmetric lanes, over a
+    dense, a sparse (shuffled) and an empty list."""
+    drawn = random_collision(n, wa, wb, g, n + wa + wb, 3)
+    lanes_a, lanes_b, tab, active, deg, gid, newc, cur = (
+        None if x is None else torch.from_numpy(x).to(card) for x in drawn)
+    for kind, listed in collision_lists_of(drawn[3], n).items():
+        rows = torch.from_numpy(listed).to(card)
+        outs = []
+        before = collision.launches
+        for fn in (collision, collision_ref):
+            out = [tab.clone(), torch.zeros_like(cur), torch.ones_like(cur),
+                   torch.full((3 * n,), -1, dtype=torch.int32, device=card),
+                   torch.ones(len(rows), dtype=torch.bool, device=card)]
+            fn(lanes_a, lanes_b, newc, out[0], deg, gid, rows, cur, *out[1:],
+               recolor_degrees=rd)
+            torch.cuda.synchronize()
+            out[3] = out[3][:int(out[1][3])].sort().values
+            outs.append(out)
+        assert collision.launches == before + 1
+        for name, a, b in zip(("table", "counts", "spare", "left", "lose"), *outs):
+            assert torch.equal(a, b), f"{kind} list: {name}"
 
 
 @pytest.mark.cuda
@@ -291,3 +320,18 @@ def test_flash_attention_kernel_matches_plain(card, monkeypatch, shape, dtype):
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     assert max_row_error(got, want) <= ROW_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,s,c,k,ps,off", SCATTER_EDGES)
+def test_pair_scatter_kernel_edges_match_plain(card, rows, s, c, k, ps, off):
+    """Table views whose rows are not 16-byte aligned, one row and many, C
+    unlike S, all pads and every slot real."""
+    wide, slots, vals = _t(*scatter_edge(rows, s, c, k, ps, off, rows + s + c), device=card)
+    table = wide[:, off:off + s]
+    before, kept = pair_scatter.launches, wide.clone()
+    got = pair_scatter(table, slots, vals)
+    torch.cuda.synchronize()
+    assert pair_scatter.launches == before + 1
+    assert torch.equal(got, pair_scatter_ref(table, slots, vals))
+    assert torch.equal(wide, kept)
