@@ -56,13 +56,32 @@ order it:
      with ``sparse_delta`` and ``hier_delta`` (``scatter="cuda"``), cold
      and warm, equal to ``all_gather``, and ``d1_2gl`` cold on both
      backends; the peak device memory after each problem;
+   - ``[plans]``: the topology hash a plan key needs (``pg.signature``)
+     timed alone, no cold call above having made it; ``get_plan`` twice
+     on one ``PlanCache`` (one plan, a
+     miss and a hit), four runs of it (the loop built once, ``traces`` 1),
+     ``color_distributed`` twice through the default cache (a miss that
+     builds the plan, then a hit), the ``nbytes`` of a d1 and a d2 plan
+     beside the ``torch.cuda.memory_allocated()`` each adds, and a
+     ``PlanCache(max_bytes=...)`` whose d2 plan evicts the d1 plan;
+   - ``[reduce]``: ``reduce_colors`` d1 ``cuda_fused`` (2 passes,
+     ``reverse``) and d2 ``cuda_fused`` (1 pass), each pass's coloring
+     proper and never above the start, with its supersteps, seconds and
+     launches, the result equal field by field to the same reduction on
+     ``reference`` (d1) or ``cuda`` (d2) on the card; and d2
+     ``cuda_fused`` (1 pass) on ``hex:128,128,128`` against
+     ``reference``, since ``cuda`` shares ``d2_assign`` and ``collision``;
+   - ``[baseline]``: ``color_baseline`` and ``color_jones_plassmann`` on
+     d1, each proper, with rounds, colors and seconds;
+   the cold ``color_distributed`` calls above pass ``cache=False``, and
+   the default plan cache is emptied between these phases;
 4. times each kernel and its plain version (CUDA events, median) on the
    inputs of its first main-path launch, right after the path that makes
    them (``fused_round`` on d1's, with and without pairs, and, for
-   ``PERF.md``, on d2's; ``d2_assign`` on a cold and a warm d2 request's
-   first iteration, ``collision`` on the cold one's, beside the plain
-   test it replaces, ``collision_losers``, and on a cold d1 and the warm
-   d2 request's first iteration; ``pair_scatter`` on the first
+   ``PERF.md``, on d2's and pd2's; ``d2_assign`` on a cold and a warm d2
+   request's first iteration, ``collision`` on the cold one's, beside the
+   plain test it replaces, ``collision_losers``, and on a cold d1 and the
+   warm d2 request's first iteration; ``pair_scatter`` on the first
    ``sparse_delta`` round's, each body of its C entry, beside the one
    PyTorch call that computes the same function, ``torch.scatter``),
    holds them equal, computes each kernel's bound from the bytes these
@@ -1450,6 +1469,253 @@ def serve_phase(device, seed, cfg, ledger, reps) -> dict:
     return entry
 
 
+PLAN_RUNS = 4                   # [plans]: runs of one cached plan
+REDUCE_CASES = (                # [reduce]: (problem, backend, held against, passes,
+    ("d1", "cuda_fused", "reference", 2, None),    # graph: None = the run's)
+    ("d2", "cuda_fused", "cuda", 1, None),
+    # cuda and cuda_fused share d2_assign and collision: hold those against
+    # the plain versions too, on a graph where reference's pass is short.
+    ("d2", "cuda_fused", "reference", 1, "hex:128,128,128"),
+)
+BACKEND_KERNELS = {             # the kernels each backend's requests launch
+    ("d1", "cuda"): ("vb_bit_assign", "collision", "conflict_detect"),
+    ("d1", "cuda_fused"): ("vb_bit_assign", "collision", "fused_round"),
+    ("d2", "cuda"): ("d2_assign", "collision", "conflict_detect"),
+    ("d2", "cuda_fused"): ("d2_assign", "collision", "fused_round"),
+}
+
+
+def fresh_caches(host_state: bool = False) -> None:
+    """Empty the default plan cache (and with ``host_state`` the host-state
+    cache) and give the device memory back: the next plan build is cold."""
+    import torch
+
+    from repro_torch.core import plan as plan_mod
+
+    plan_mod.default_plan_cache().clear()
+    if host_state:
+        plan_mod._STATE_CACHE.clear()
+    torch.cuda.empty_cache()
+
+
+def plans_phase(pg, pg2, device, ledger) -> None:
+    """``[plans]``: a keyed plan cache hit, the loop built once over warm
+    runs, ``color_distributed`` twice through the default cache, each
+    plan's pinned bytes beside the device memory it adds, and eviction by
+    bytes."""
+    import torch
+
+    from repro_torch.core.distributed import color_distributed
+    from repro_torch.core.plan import PlanCache, default_plan_cache, get_plan
+
+    t_phase = time.perf_counter()
+    # Only a cached plan or host state needs the key: no cold call above
+    # has hashed either topology.
+    hashed = [x.name for x in (pg, pg2) if "_signature" in vars(x)]
+    if hashed:
+        raise AssertionError(f"a cold call hashed the topology of {hashed}")
+    _, sig_s = wall_s(lambda: pg.signature)
+    _, sig2_s = wall_s(lambda: pg2.signature)
+    log(f"[plans] the topology hash a plan key needs (pg.signature, memoized per "
+        f"PartitionedGraph), alone: {sig_s:.4f} s for {pg.name}, {sig2_s:.4f} s with "
+        f"the second ghost layer; no cold call before made it")
+    fresh_caches(host_state=True)
+    cache = PlanCache()
+    ledger.start()
+    plan, get_s = wall_s(lambda: get_plan(pg, backend="cuda_fused", device=device,
+                                          cache=cache))
+    again = get_plan(pg, backend="cuda_fused", device=device, cache=cache)
+    if again is not plan or (cache.misses, cache.hits) != (1, 1):
+        raise AssertionError("get_plan twice did not return one cached plan")
+    runs = [ledger.timed(f"plans d1 cuda_fused run {i + 1}", plan.run)
+            for i in range(PLAN_RUNS)]
+    ledger.end("plans d1 cuda_fused", BACKEND_KERNELS["d1", "cuda_fused"])
+    if plan.stats.traces != 1 or plan.stats.runs != PLAN_RUNS:
+        raise AssertionError(f"plan stats after {PLAN_RUNS} runs: {plan.stats}")
+    if not all(same_result(r, runs[0][0]) for r, _ in runs):
+        raise AssertionError("the runs of one plan differ")
+    log(f"[plans] d1 cuda_fused get_plan twice: one plan, misses 1, hits 1; built in "
+        f"{get_s:.4f} s (build_ms {plan.stats.build_ms:.1f}); traces "
+        f"{plan.stats.traces} after {PLAN_RUNS} runs of "
+        f"{[round(s, 4) for _, s in runs]} s (compile_ms, the first run, "
+        f"{plan.stats.compile_ms:.1f})")
+    del plan, again, cache
+
+    fresh_caches(host_state=True)
+    default = default_plan_cache()
+    counts = [(default.misses, default.hits)]
+    ledger.start()
+    first, first_s = ledger.timed("plans color_distributed 1 (builds its plan)",
+                                  lambda: color_distributed(pg, backend="cuda_fused",
+                                                            device=device))
+    counts.append((default.misses, default.hits))
+    second, second_s = ledger.timed("plans color_distributed 2 (a cache hit)",
+                                    lambda: color_distributed(pg, backend="cuda_fused",
+                                                              device=device))
+    counts.append((default.misses, default.hits))
+    ledger.end("plans color_distributed", BACKEND_KERNELS["d1", "cuda_fused"])
+    [cached] = default.plans()
+    if not (same_result(first, second) and same_result(first, runs[0][0])):
+        raise AssertionError("color_distributed through the cache differs")
+    # (misses, hits) of the default cache: a miss, then a hit.
+    if [(m - counts[0][0], h - counts[0][1]) for m, h in counts] != [(0, 0), (1, 0), (1, 1)]:
+        raise AssertionError(f"default cache (misses, hits) went {counts}")
+    log(f"[plans] color_distributed twice through the default cache: {first_s:.4f} s "
+        f"(a miss: built the plan in {cached.stats.build_ms / 1e3:.4f} s, host state "
+        f"included), then {second_s:.4f} s (a hit)")
+    del cached, first, second, runs
+
+    fresh_caches()
+    evicted = []
+
+    def on_evict(key, plan):
+        evicted.append(key)
+
+    sized = PlanCache()
+    sized.add_evict_listener(on_evict)
+    held = {}
+    for label, pgx, problem in (("d1", pg, "d1"), ("d2", pg2, "d2")):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        p = get_plan(pgx, problem=problem, backend="cuda_fused", device=device,
+                     cache=sized)
+        torch.cuda.synchronize()
+        added = torch.cuda.memory_allocated() - before
+        tensors = sum(v.numel() * v.element_size() for v in p._st.values())
+        log(f"[plans] {label} cuda_fused plan: nbytes {p.nbytes} ({tensors} B of device "
+            f"tensors, {p.nbytes - tensors} B of host tables); "
+            f"torch.cuda.memory_allocated() grew {added} B")
+        held[label] = p
+        if label == "d1":
+            sized.max_bytes = p.nbytes      # room for the d1 plan alone
+    if sized.keys() != [held["d2"].key] or evicted != [held["d1"].key]:
+        raise AssertionError("PlanCache(max_bytes=...) did not evict the d1 plan")
+    log(f"[plans] PlanCache(max_bytes={sized.max_bytes}): the d2 plan evicted the d1 "
+        f"plan; total_bytes {sized.total_bytes}")
+    del held, p, sized
+    fresh_caches()
+    log(f"[plans] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def reduce_phase(g, pg, pg2, device, ledger) -> None:
+    """``[reduce]``: iterative color reduction on the kernel backends, every
+    pass's coloring proper and never above the start, the result equal
+    field by field to the same reduction on another backend."""
+    import torch
+
+    from repro_torch.core import validate
+    from repro_torch.core.plan import PlanCache, get_plan
+    from repro_torch.core.reduce import _cap_for, get_reduce_plan, reduce_colors
+    from repro_torch.core.reduce import reduce_colors_batch
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.launch.color import make_graph
+
+    fields = ("n_colors", "initial_n_colors", "improved", "passes_run",
+              "colors_by_pass", "comm_bytes_by_pass", "rounds_by_pass",
+              "exchanges_by_pass", "converged", "order", "problem")
+    t_phase = time.perf_counter()
+    for problem, backend, other, passes, spec in REDUCE_CASES:
+        fresh_caches()
+        if spec is None:
+            gx, pgx = g, (pg if problem == "d1" else pg2)
+        else:
+            t0 = time.perf_counter()
+            gx = make_graph(spec)
+            pgx = partition_graph(gx, pg.n_parts, second_layer=problem != "d1")
+            log(f"[reduce] {gx.name} over {pg.n_parts} parts, second layer "
+                f"{problem != 'd1'}: made in {time.perf_counter() - t0:.1f} s")
+        proper = getattr(validate, VALIDATORS[problem])
+        cache = PlanCache()
+        plan = get_plan(pgx, problem=problem, backend=backend, device=device, cache=cache)
+        base = plan.run()
+        by_pass = []
+        # Each pass selects its classes once: a select opens the pass's row.
+        rplan = get_reduce_plan(plan.n_global, _cap_for(int(base.colors.max())),
+                                "reverse", cache=cache, device=device)
+        select = rplan.select
+
+        def select_opens_a_pass(colors):
+            by_pass.append({"supersteps": 0, "s": 0.0, "launches": {}})
+            return select(colors)
+
+        rplan.select = select_opens_a_pass
+
+        def run_many(reqs):
+            row = by_pass[-1]
+            before = ledger.read()
+            out, s = wall_s(lambda: [plan.run(**r) for r in reqs])
+            row["supersteps"] += len(reqs)
+            row["s"] += s
+            for k, v in ledger.read().items():
+                if v != before[k]:
+                    row["launches"][k] = row["launches"].get(k, 0) + v - before[k]
+            row["colors"] = out[-1].colors      # the pass's coloring so far
+            return out
+
+        label = f"reduce {problem} {backend}" + ("" if spec is None else f" {gx.name}")
+        ledger.start()
+        [red], red_s = wall_s(lambda: reduce_colors_batch(
+            plan, [base], passes=passes, order="reverse", cache=cache,
+            run_many=run_many))
+        ledger.end(label, BACKEND_KERNELS[problem, backend])
+        rplan.select = select
+        if len(by_pass) != red.passes_run:
+            raise AssertionError(f"{label}: {len(by_pass)} selects for "
+                                 f"{red.passes_run} passes")
+        for i, row in enumerate(by_pass):
+            n = validate.num_colors(row["colors"])
+            if not proper(gx, row["colors"]) or n > base.n_colors:
+                raise AssertionError(f"{label} pass {i + 1}: {n} colors, proper "
+                                     f"{proper(gx, row['colors'])}")
+            log(f"[reduce] {label} pass {i + 1}: {n} colors, {row['supersteps']} "
+                f"supersteps, {row['s']:.4f} s, launches {row['launches']}")
+        if not (proper(gx, red.colors) and red.converged
+                and red.n_colors <= base.n_colors):
+            raise AssertionError(f"{label}: the reduced coloring is not proper")
+
+        oplan = get_plan(pgx, problem=problem, backend=other, device=device, cache=cache)
+        if other != "reference":
+            ledger.start()
+        want, other_s = wall_s(lambda: reduce_colors(oplan, base, passes=passes,
+                                                     order="reverse", cache=cache))
+        if other != "reference":
+            ledger.end(f"{label} against {other}", BACKEND_KERNELS[problem, other])
+        if not (np.array_equal(red.colors, want.colors)
+                and all(getattr(red, f) == getattr(want, f) for f in fields)):
+            raise AssertionError(f"{label}: differs from the {other} backend")
+        log(f"[reduce] {label} passes={passes} reverse: colors_by_pass "
+            f"{red.colors_by_pass}, comm_bytes_by_pass {red.comm_bytes_by_pass}, "
+            f"rounds_by_pass {red.rounds_by_pass}, exchanges_by_pass "
+            f"{red.exchanges_by_pass}, {red_s:.4f} s; every pass proper "
+            f"({VALIDATORS[problem]}) and at most {base.n_colors} colors; equal field "
+            f"by field to the {other} backend on the card ({other_s:.4f} s)")
+        del plan, oplan, rplan, cache, base, red, want, by_pass, gx, pgx
+        torch.cuda.synchronize()
+    fresh_caches()
+    log(f"[reduce] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def baseline_phase(g, pg, device) -> None:
+    """``[baseline]``: the Zoltan-style batched-boundary baseline and
+    Jones-Plassmann on d1, each proper."""
+    from repro_torch.core.baseline import color_baseline
+    from repro_torch.core.jones_plassmann import color_jones_plassmann
+    from repro_torch.core.validate import is_proper_d1
+
+    t_phase = time.perf_counter()
+    for label, fn in (("color_baseline", color_baseline),
+                      ("color_jones_plassmann", color_jones_plassmann)):
+        res, s = wall_s(lambda: fn(pg, device=device))
+        ok = res.converged and is_proper_d1(g, res.colors)
+        log(f"[baseline] {label} d1 {g.name} over {pg.n_parts} parts: "
+            f"rounds={res.rounds} colors={res.n_colors} "
+            f"conflicts={res.total_conflicts} {s:.4f} s proper={ok}")
+        if not ok:
+            raise AssertionError(f"{label}: the coloring is not proper")
+    fresh_caches(host_state=True)
+    log(f"[baseline] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default="hex:256,256,256")
@@ -1546,7 +1812,8 @@ def run(device, args) -> int:
     # d1, cuda: cold color_distributed, then three warm requests in one plan.
     ledger.start()
     cold, cold_s = ledger.timed("d1 cuda cold color_distributed",
-                                lambda: color_distributed(pg, backend="cuda", device=device))
+                                lambda: color_distributed(pg, backend="cuda", device=device,
+                                                          cache=False))
     t0 = time.perf_counter()
     plan = ColoringPlan(pg, backend="cuda", device=device)
     torch.cuda.synchronize()
@@ -1647,7 +1914,7 @@ def run(device, args) -> int:
     ledger.start()
     fused, _ = ledger.timed("d1 cuda_fused cold color_distributed",
                             lambda: color_distributed(pg, backend="cuda_fused",
-                                                      device=device))
+                                                      device=device, cache=False))
     fplan = ColoringPlan(pg, backend="cuda_fused", device=device)
     fused = [fused]
     for i, (m, c0) in enumerate(zip(masks, colors0)):
@@ -1699,7 +1966,6 @@ def run(device, args) -> int:
                 **time_pair_scatter(ps_args, args.reps, baseline.get("pair_scatter"))}
             del colors, ghost, ps_args
         del xplan
-    del pg
     log(f"[memory] d1: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
 
     # The distance-2 family on the same graph with a second ghost layer.
@@ -1773,22 +2039,22 @@ def run(device, args) -> int:
                                d2_collision_inputs(st, warm), args.reps,
                                baseline.get("collision"))
                 del st, warm, d2_blocks
-            if problem == "d2" and backend == "cuda_fused":
-                # fused_round on d2: the first round of the cold run, timed
-                # for PERF.md beside the d1 entry of the kernels line.
+            if backend == "cuda_fused":
+                # fused_round on d2 and pd2: the first round of the cold run,
+                # timed for PERF.md beside the d1 entry of the kernels line.
                 st = kplan._st
-                colors, ghost = first_round_inputs(kplan, "d2", device)
-                nbytes, iters = fused_round_bytes(st, colors, ghost, "d2", True)
-                log(f"[time] fused_round d2 first-round inputs: the plain fixed "
+                colors, ghost = first_round_inputs(kplan, problem, device)
+                nbytes, iters = fused_round_bytes(st, colors, ghost, problem, True)
+                log(f"[time] fused_round {problem} first-round inputs: the plain fixed "
                     f"point takes {iters} iterations")
                 d2_args = (st["adj_cidx"], colors, ghost, st["deg_tab"], st["gid_tab"],
                            st["is_boundary"], st["two_hop_cidx"])
-                time_kernel("fused_round d2", fused_round, fused_round_ref, d2_args,
-                            {"problem": "d2"}, nbytes, args.reps)
-                fused_round_split("d2", d2_args, {"problem": "d2"}, args.reps,
-                     baseline.get("fused_round"))
-                del d2_args
-                del st, colors, ghost
+                time_kernel(f"fused_round {problem}", fused_round, fused_round_ref,
+                            d2_args, {"problem": problem}, nbytes, args.reps)
+                if problem == "d2":
+                    fused_round_split("d2", d2_args, {"problem": "d2"}, args.reps,
+                                      baseline.get("fused_round"))
+                del d2_args, st, colors, ghost
             del kplan
         if problem == "d2":
             # The sparse exchanges on d2, against all_gather on cuda_fused.
@@ -1812,17 +2078,25 @@ def run(device, args) -> int:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ref = color_distributed(pg2, problem="d1_2gl", backend="reference", device=device)
+    ref = color_distributed(pg2, problem="d1_2gl", backend="reference", device=device,
+                            cache=False)
     for backend in ("cuda", "cuda_fused"):
         ledger.start()
         got, _ = ledger.timed(f"d1_2gl {backend} cold color_distributed",
                               lambda: color_distributed(pg2, problem="d1_2gl",
-                                                        backend=backend, device=device))
+                                                        backend=backend, device=device,
+                                                        cache=False))
         ledger.end(f"d1_2gl {backend}", ("vb_bit_assign", "collision", "conflict_detect"))
         check_results(f"d1_2gl {backend}", g, "d1_2gl", [got], [ref])
     log(f"[memory] d1_2gl: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB allocated")
-    del pg2, g, ref, got, fused, refs, results, masks, colors0
+    del ref, got, fused, refs, results, masks, colors0
+
+    # -- the plan cache, color reduction and the comparison points -----------------
+    plans_phase(pg, pg2, device, ledger)
+    reduce_phase(g, pg, pg2, device, ledger)
+    baseline_phase(g, pg, device)
+    del pg, pg2, g
 
     # -- 4. serving, and flash_attention on the served model's tensors -------------
     t0 = time.perf_counter()

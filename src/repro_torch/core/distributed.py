@@ -10,10 +10,10 @@ bytes are measured and reported in ``ColoringResult.comm_bytes_by_round``
 and, split ``[intra-node, inter-node]``, ``comm_bytes_by_level``.
 
 Problems: ``d1``, ``d1_2gl``, ``d2``, ``pd2`` (paper §3.2-§3.6).
-:func:`color_distributed` routes through
-``repro_torch.core.plan.ColoringPlan``, which uploads the device state
-once; this module keeps the device-state construction, the per-part step
-functions and the loop.
+:func:`color_distributed` routes through ``repro_torch.core.plan.get_plan``,
+whose plans upload the device state once and are cached by key; this
+module keeps the device-state construction, the per-part step functions
+and the loop.
 """
 from __future__ import annotations
 
@@ -294,14 +294,21 @@ def color_distributed(
     backend: str | LocalBackend = "reference",
     exchange: str | ExchangeStrategy = "all_gather",
     max_rounds: int = 64,
-    engine: str = "simulate",
+    engine: str = "auto",
     color_mask: np.ndarray | None = None,
     device=None,
+    cache=None,
+    reduce_passes: int = 0,
+    reduce_order: str = "reverse",
 ) -> ColoringResult:
     """Color a partitioned graph with the paper's distributed algorithm.
 
-    Routed through :class:`repro_torch.core.plan.ColoringPlan`: the device
-    state is uploaded once, then one request runs.
+    Routed through the plan layer (``repro_torch.core.plan``): the static
+    half — device-state tables, exchange prepare, upload and the loop
+    program — is built once per ``(topology, problem, recolor_degrees,
+    backend, exchange, engine, max_rounds, device)`` and served from a
+    keyed LRU cache, so repeated calls on one topology (the paper's
+    timestep-recoloring workload) pay only the dynamic half.
 
     problem: ``"d1"``, ``"d1_2gl"``, ``"d2"`` or ``"pd2"``; all but d1
     need ``partition_graph(..., second_layer=True)``.
@@ -324,26 +331,43 @@ def color_distributed(
     counts; each reports its own measured bytes.
 
     engine: ``"simulate"`` (every part stacked on one device) or
-    ``"auto"``, which resolves as ``repro``'s does: ``"shard_map"`` when
-    there are at least ``n_parts > 1`` devices of the plan's type, else
-    ``"simulate"``.  ``"shard_map"`` is not ported yet and raises.
+    ``"auto"``, which gives ``"simulate"`` on every host until the
+    multi-GPU engine is ported (``repro`` picks ``"shard_map"`` there when
+    it has at least ``n_parts > 1`` devices); ``"shard_map"`` raises.
 
     color_mask: optional (n_global,) bool — restrict coloring to a vertex
     subset.
 
     device: ``None`` means ``"cuda"``; pass ``"cpu"`` to run on the CPU.
     Without a card, the default raises instead of falling back.
-    """
-    from repro_torch.core.plan import ColoringPlan, _resolve_engine
 
-    engine = _resolve_engine(engine, pg.n_parts, device)
-    if engine != "simulate":
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md, queue 8)")
-    plan = ColoringPlan(pg, problem=problem, recolor_degrees=recolor_degrees,
-                        backend=backend, exchange=exchange,
-                        max_rounds=max_rounds, device=device)
-    return plan.run(color_mask=color_mask)
+    cache: ``None`` → the process-wide default
+    :class:`~repro_torch.core.plan.PlanCache`; a ``PlanCache`` → that
+    cache; ``False`` → a fully cold plan for this call (fresh host state
+    too).  Cached plans pin their device tensors until LRU-evicted; for
+    sweeps over many large topologies use ``cache=False`` or clear the
+    default cache.
+
+    reduce_passes / reduce_order: optional post-coloring quality pass —
+    up to ``reduce_passes`` iterative color-reduction passes
+    (``repro_torch.core.reduce``) over the finished coloring, rebuilding
+    its classes in ``reduce_order``.  The returned result folds the
+    reduction in: final colors, summed rounds and measured comm bytes.
+    """
+    from repro_torch.core.plan import get_plan
+
+    plan = get_plan(pg, problem=problem, recolor_degrees=recolor_degrees,
+                    backend=backend, exchange=exchange, engine=engine,
+                    max_rounds=max_rounds, device=device, cache=cache)
+    res = plan.run(color_mask=color_mask)
+    if reduce_passes > 0:
+        from repro_torch.core.reduce import reduce_colors
+
+        red = reduce_colors(plan, res, passes=reduce_passes,
+                            order=reduce_order, cache=cache,
+                            color_mask=color_mask)
+        res = red.merged_result(res)
+    return res
 
 
 def color_single_device(

@@ -5,7 +5,8 @@
       [--backend cuda|cuda_fused|reference] [--device cuda|cpu] \
       [--exchange all_gather|halo|delta|sparse_delta|hier_delta] \
       [--strategy block|edge_balanced|random] [--node-size L] \
-      [--no-recolor-degrees] [--repeat 16]
+      [--no-recolor-degrees] [--engine auto|simulate] [--baseline] \
+      [--repeat 16] [--reduce-passes P [--reduce-order reverse]]
 
 Graph specs: hex:NX,NY,NZ | grid:NX,NY | rmat:SCALE,EF | rgg:N,R |
 myc:K | er:N,DEG | bip:ROWS,COLS,NNZ (with --problem pd2 for the Jacobian
@@ -24,11 +25,25 @@ with the ``pair_scatter`` kernel when --backend is a kernel backend.
 --strategy selects the partitioner and --node-size L a two-level
 partition of L parts per node (0 = flat; pairs with ``hier_delta``).
 
+--engine selects the engine: ``simulate``, or ``auto`` (the default),
+which picks ``simulate`` on every host (the multi-GPU engine,
+``shard_map``, is not ported yet and raises).
+--baseline colors with the Bozdağ/Zoltan-style batched-boundary baseline
+(``repro_torch.core.baseline``; the reference backend and ``all_gather``).
+
 --repeat N is the timestep mode (the paper's motivating workload): the
-same topology is recolored N times through one plan, whose device state
-is uploaded once; the first and the mean later request times are
-reported.  The CLI exits 1 on a coloring that is not proper for its
-problem.
+same topology is recolored N times through one plan of the plan cache
+(``get_plan``), whose device state is uploaded once; ``compile_ms=`` is
+the first timestep, which pays the one-time costs (eager PyTorch compiles
+nothing: the kernel libraries' first load and the allocator's first
+blocks), and ``warm_ms=`` the mean of the later timesteps.
+
+--reduce-passes P runs up to P iterative color-reduction passes
+(``repro_torch.core.reduce``) over the finished coloring, rebuilding its
+color classes in --reduce-order; the colors-vs-passes trajectory and the
+measured per-pass comm payload are printed, and the final (reduced)
+coloring is validated.  The CLI exits 1 on a coloring that is not proper
+for its problem.
 """
 from __future__ import annotations
 
@@ -38,9 +53,12 @@ import time
 import torch
 
 from repro_torch.core.backend import list_backends
+from repro_torch.core.baseline import color_baseline
 from repro_torch.core.distributed import PROBLEMS
 from repro_torch.core.exchange import EXCHANGES, list_exchanges
-from repro_torch.core.plan import ColoringPlan
+from repro_torch.core.plan import get_plan
+from repro_torch.core.quality import trajectory
+from repro_torch.core.reduce import list_orders, reduce_colors
 from repro_torch.core.validate import is_proper_d1, is_proper_d2, is_proper_pd2
 from repro_torch.graph import generators as gen
 from repro_torch.graph.partition import partition_graph, two_level_partition
@@ -100,38 +118,73 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default="cuda", choices=list_backends())
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--exchange", default="all_gather", choices=list_exchanges())
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "shard_map", "simulate"])
     ap.add_argument("--strategy", default="block",
                     choices=["block", "edge_balanced", "random"])
     ap.add_argument("--node-size", type=int, default=0, metavar="L",
                     help="two-level partition: L parts per node "
                          "(0 = flat; pairs with --exchange hier_delta)")
     ap.add_argument("--no-recolor-degrees", action="store_true")
+    ap.add_argument("--baseline", action="store_true",
+                    help="Bozdağ/Zoltan-style batched boundary coloring")
     ap.add_argument("--repeat", type=int, default=1, metavar="N",
                     help="timestep mode: recolor the topology N times "
-                         "through one plan, report first vs later ms")
+                         "through the plan cache, report first vs warm ms")
+    ap.add_argument("--reduce-passes", type=int, default=0, metavar="P",
+                    help="post-color quality: up to P iterative color-"
+                         "reduction passes (repro_torch.core.reduce)")
+    ap.add_argument("--reduce-order", default="reverse", choices=list_orders(),
+                    help="class-rebuild order used by --reduce-passes")
     args = ap.parse_args(argv)
 
     g = make_graph(args.graph)
     print(f"[color] graph {g.name}: n={g.n} m={g.num_edges} "
           f"maxdeg={g.max_degree}")
     pg = make_partition(g, args)
+    recolor_degrees = not args.no_recolor_degrees
     t0 = time.time()
-    plan = ColoringPlan(pg, problem=args.problem,
-                        recolor_degrees=not args.no_recolor_degrees,
-                        backend=args.backend, exchange=make_exchange(args),
-                        device=args.device)
-    times = []
-    for _ in range(max(args.repeat, 1)):
-        t1 = time.perf_counter()
-        res = plan.run()
-        _sync(plan.device)
-        times.append((time.perf_counter() - t1) * 1e3)
+    if args.baseline:
+        if args.backend != "reference" or args.exchange != "all_gather":
+            print("[color] note: --baseline uses the reference backend and "
+                  "all_gather exchange; --backend/--exchange are ignored")
+        res = color_baseline(pg, problem=args.problem,
+                             recolor_degrees=recolor_degrees, device=args.device)
+        target = pg
+    else:
+        plan = target = get_plan(
+            pg, problem=args.problem, recolor_degrees=recolor_degrees,
+            backend=args.backend, exchange=make_exchange(args),
+            engine=args.engine, device=args.device)
+    reduce_kw = dict(passes=args.reduce_passes, order=args.reduce_order,
+                     problem=args.problem, recolor_degrees=recolor_degrees,
+                     backend="reference", exchange="all_gather",
+                     engine=args.engine, device=args.device)
+    if not args.baseline and args.repeat > 1:
+        times = []
+        for _ in range(args.repeat):
+            t1 = time.perf_counter()
+            res = plan.run()
+            if args.reduce_passes > 0:
+                res = reduce_colors(plan, res, **reduce_kw).merged_result(res)
+            _sync(plan.device)
+            times.append((time.perf_counter() - t1) * 1e3)
+        print(f"[color] repeat={args.repeat} engine={plan.key.engine} "
+              f"compile_ms={times[0]:.1f} (first timestep, paid once) "
+              f"warm_ms={sum(times[1:]) / len(times[1:]):.2f} "
+              f"(mean of {args.repeat - 1} later timesteps)")
+    else:
+        if not args.baseline:
+            res = plan.run()
+        if args.reduce_passes > 0:
+            red = reduce_colors(target, res, **reduce_kw)
+            print(f"[color] reduce order={args.reduce_order} "
+                  f"passes={red.passes_run}/{args.reduce_passes} "
+                  f"colors {red.initial_n_colors} -> {red.n_colors} "
+                  f"({trajectory(red.colors_by_pass, red.comm_bytes_by_pass)})")
+            res = red.merged_result(res)
+    _sync(torch.device(args.device))
     dt = time.time() - t0
-    if args.repeat > 1:
-        later = times[1:]
-        print(f"[color] repeat={args.repeat} first_ms={times[0]:.1f} "
-              f"later_ms={sum(later) / len(later):.2f} "
-              f"(mean of {len(later)} requests through one plan)")
     ok = VALIDATORS[args.problem](g, res.colors)
     print(f"[color] {res.problem} parts={res.n_parts} "
           f"backend={res.backend} exchange={res.exchange} "
@@ -140,10 +193,11 @@ def main(argv=None) -> None:
           f"converged={res.converged} "
           f"comm/round={res.comm_bytes_per_round}B "
           f"comm_total={res.comm_bytes_total}B time={dt:.2f}s "
-          f"(device={plan.device})")
-    print(f"[color] comm_bytes_by_round="
-          f"{[int(b) for b in res.comm_bytes_by_round]}")
-    if res.comm_bytes_intra:
+          f"(device={args.device})")
+    if res.comm_bytes_by_round is not None:
+        print(f"[color] comm_bytes_by_round="
+              f"{[int(b) for b in res.comm_bytes_by_round]}")
+    if res.comm_bytes_by_level is not None and res.comm_bytes_intra:
         print(f"[color] comm_bytes intra-node={res.comm_bytes_intra}B "
               f"inter-node={res.comm_bytes_inter}B")
     if not ok:
