@@ -43,8 +43,9 @@ order it:
      vertices cleared; a cold and a warm request profiled;
    - d1 ``cuda_fused``: the same four requests; a warm one profiled;
    - the ghost exchanges on ``cuda_fused``: ``halo``, ``delta``,
-     ``sparse_delta(scatter="cuda")`` and ``hier_delta(scatter="cuda")``,
-     the same four requests on one plan each, each equal to ``all_gather``
+     ``sparse_delta`` and ``hier_delta`` (named under a kernel backend, the
+     sparse two scatter with ``pair_scatter``), the same four requests on
+     one plan each, each equal to ``all_gather``
      (the ``cuda_fused`` requests above) in colors, rounds, conflicts and
      colors used, and the sparse two equal in every field (comm bytes by
      round and by level included) to the same exchange with the plain
@@ -53,7 +54,7 @@ order it:
    - on the same graph partitioned with a second ghost layer, ``d2`` and
      ``pd2`` on ``cuda`` and ``cuda_fused``, a cold and a warm 10% request
      each (a ``cuda_fused`` d2 warm request profiled), d2 on ``cuda_fused``
-     with ``sparse_delta`` and ``hier_delta`` (``scatter="cuda"``), cold
+     with ``sparse_delta`` and ``hier_delta`` (``pair_scatter``), cold
      and warm, equal to ``all_gather``, and ``d1_2gl`` cold on both
      backends; the peak device memory after each problem;
    - ``[plans]``: the topology hash a plan key needs (``pg.signature``)
@@ -73,6 +74,20 @@ order it:
      ``reference``, since ``cuda`` shares ``d2_assign`` and ``collision``;
    - ``[baseline]``: ``color_baseline`` and ``color_jones_plassmann`` on
      d1, each proper, with rounds, colors and seconds;
+   - ``[service]``: the continuous-batching service
+     (``repro_torch.serve``): ``ColoringService.run_batch`` of 12 warm 10%
+     d1 ``cuda_fused`` requests (``max_batch`` 8: a wave of 8, then
+     refills) and of 4 warm 10% d2 ``cuda_fused`` requests, each result
+     equal in every field to the solo ``plan.run`` of the same request,
+     with the batch's wall time beside the solo runs', the service's
+     stats, steps, host syncs per step (``count_syncs``) and a carry's
+     bytes beside the ``memory_allocated`` growth; and a
+     ``ColoringFrontend`` stream of 8 full requests alternating the graph
+     and ``hex:128,128,128`` (``sparse_delta`` by name, which scatters
+     with ``pair_scatter`` under ``cuda_fused``; one reduction pass),
+     replayed cold and warm, each result equal to the
+     solo ``plan.run`` + ``reduce_colors``, with ``pg.signature`` at
+     first admission timed alone;
    the cold ``color_distributed`` calls above pass ``cache=False``, and
    the default plan cache is emptied between these phases;
 4. times each kernel and its plain version (CUDA events, median) on the
@@ -764,10 +779,14 @@ def pair_scatter_bytes(table, slots) -> int:
 
 
 def same_result(a, b) -> bool:
+    """Equal in every field (a reduction's merged result has no per-round
+    bytes: ``None`` on both sides compares equal)."""
     return (np.array_equal(a.colors, b.colors) and a.rounds == b.rounds
             and a.converged == b.converged
             and a.total_conflicts == b.total_conflicts
             and a.n_colors == b.n_colors
+            and a.comm_bytes_total == b.comm_bytes_total
+            and a.comm_bytes_per_round == b.comm_bytes_per_round
             and np.array_equal(a.comm_bytes_by_round, b.comm_bytes_by_round)
             and np.array_equal(a.comm_bytes_by_level, b.comm_bytes_by_level))
 
@@ -1185,13 +1204,6 @@ def check_exchange(label, g, problem, results, ag_results) -> None:
         f"total {[r.comm_bytes_total for r in results]}, [intra, inter] "
         f"{[[r.comm_bytes_intra, r.comm_bytes_inter] for r in results]}, by round "
         f"{[[int(b) for b in r.comm_bytes_by_round] for r in results]}")
-
-
-def make_exchange(name, scatter=None):
-    """A fresh exchange strategy; the sparse ones with ``scatter``."""
-    from repro_torch.core.exchange import EXCHANGES
-
-    return EXCHANGES[name](scatter=scatter) if scatter else EXCHANGES[name]()
 
 
 def leaves(tree):
@@ -1712,8 +1724,220 @@ def baseline_phase(g, pg, device) -> None:
             f"conflicts={res.total_conflicts} {s:.4f} s proper={ok}")
         if not ok:
             raise AssertionError(f"{label}: the coloring is not proper")
-    fresh_caches(host_state=True)
+    fresh_caches()              # the host tables stay for [service]
     log(f"[baseline] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+SERVICE_BATCH = 12              # [service]: d1 warm requests, through max_batch 8
+SERVICE_MAX_BATCH = 8
+SERVICE_D2_BATCH = 4            # d2 warm requests
+SERVICE_STREAM = 8              # frontend stream, alternating two topologies
+SERVICE_STREAM_GRAPH = "hex:128,128,128"
+
+
+def counting_steps(plan) -> dict:
+    """Count the plan's slot-engine steps and the slot transitions in them,
+    and time every step (instance attributes over the plan's own, read when
+    a bucket's step is built).  A step starts after the last host sync and
+    ends with its own, so its wall time holds its device work; each
+    bucket's first step, which the service books in ``cold_ms`` and not in
+    ``warm_ms_mean``, is timed as well."""
+    counts = {"steps": 0, "transitions": 0, "step_s": 0.0}
+    make, raw = plan.slot_step, plan.raw_step
+
+    def raw_step(st, c):
+        counts["transitions"] += 1
+        return raw(st, c)
+
+    def slot_step():
+        step = make()
+
+        def counted(carry):
+            counts["steps"] += 1
+            t0 = time.perf_counter()
+            try:
+                return step(carry)
+            finally:
+                counts["step_s"] += time.perf_counter() - t0
+
+        return counted
+
+    plan.raw_step, plan.slot_step = raw_step, slot_step
+    return counts
+
+
+def carry_bytes(plan, bucket) -> tuple[int, int]:
+    """An idle ``bucket``-slot carry of ``plan``: its device bytes, and how
+    much ``torch.cuda.memory_allocated()`` grew to hold it."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    carry = plan.slot_carry(bucket, plan.slot_ex_init())
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(carry)
+                 if isinstance(x, torch.Tensor))
+    return nbytes, grew
+
+
+def warm_requests(plan, cold, n, rng):
+    """``n`` warm requests: a random 10% ``color_mask`` each and ``colors0``
+    the cold coloring with the masked vertices cleared."""
+    from repro_torch.serve import ColoringRequest
+
+    reqs = []
+    for _ in range(n):
+        m = rng.random(plan.n_global) < 0.1
+        reqs.append(ColoringRequest(color_mask=m, colors0=np.where(m, 0, cold.colors)))
+    return reqs
+
+
+def service_batch(label, svc, reqs, ledger, uses) -> None:
+    """``svc.run_batch(reqs)`` against the solo runs of the same requests:
+    equal in every field; wall time, requests per second, stats, steps,
+    launches, host syncs per step and memory."""
+    import torch
+
+    plan = svc.plan
+    solo = []
+    for r in reqs:
+        solo.append(wall_s(lambda: plan.run(**r.plan_inputs())))
+    solo_s = sum(s for _, s in solo)
+    counts = counting_steps(plan)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ledger.start()
+    t0 = time.perf_counter()
+    got, syncs = count_syncs(lambda: svc.run_batch(reqs))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    ledger.end(label, uses)
+    peak = torch.cuda.max_memory_allocated() - before
+    for i, (r, (want, _)) in enumerate(zip(got, solo, strict=True)):
+        if not same_result(r, want):
+            raise AssertionError(f"{label} request {i}: differs from its solo plan.run")
+    s = svc.stats
+    bucket = max(svc.buckets)
+    nbytes, grew = carry_bytes(plan, bucket)
+    log(f"[service] {label}: {len(reqs)} warm 10% requests equal to their solo plan.run "
+        f"in every field; batch {batch_s:.4f} s ({len(reqs) / batch_s:.2f} req/s) against "
+        f"solo {solo_s:.4f} s summed ({len(reqs) / solo_s:.2f} req/s)")
+    log(f"[service] {label}: stats batches={s.batches} refills={s.refills} "
+        f"cold_runs={s.cold_runs} cold_ms={s.cold_ms:.1f} "
+        f"warm_ms_mean={s.warm_ms_mean:.1f}; {counts['steps']} steps, "
+        f"{counts['transitions']} slot transitions, {syncs} host syncs "
+        f"({syncs / max(counts['steps'], 1):.1f} a step, under count_syncs), launches "
+        f"{ {k: v for k, v in ledger.paths[label].items() if v} }")
+    log(f"[service] {label}: a {bucket}-slot carry (the batch's bucket) holds {nbytes} B "
+        f"({nbytes / 1e9:.3f} GB; memory_allocated grew {grew} B to hold it); the "
+        f"batch's peak memory_allocated grew {peak} B over the plan's")
+    # A request's host work outside the steps: its inputs (numpy over every
+    # vertex), their upload, and the result's download and gather.
+    inputs, in_s = wall_s(lambda: plan.request_inputs(**reqs[0].plan_inputs()))
+    args, up_s = wall_s(lambda: plan.slot_args(*inputs[:3]))
+    nbytes_hist = torch.zeros((plan.max_rounds + 1, 2), dtype=torch.int32,
+                              device=plan.device)
+    _, out_s = wall_s(lambda: plan._result(args[0], 0, 0, 0, nbytes_hist))
+    log(f"[service] {label}: one request's host work outside the steps: request_inputs "
+        f"{in_s:.4f} s, slot_args upload {up_s:.4f} s, _result {out_s:.4f} s; the steps "
+        f"took {counts['step_s']:.4f} s in all, {counts['step_s'] * 1e3 / len(reqs):.1f} ms "
+        f"a request (every step timed; warm_ms_mean {s.warm_ms_mean:.1f} ms leaves out "
+        "each bucket's first step)")
+
+
+def service_phase(pg, pg2, device, ledger, seed) -> None:
+    """``[service]``: the continuous-batching service on the card — a d1
+    ``cuda_fused`` batch of warm requests through refills, a frontend
+    stream over two topologies with ``sparse_delta`` (``pair_scatter``) and
+    a reduction pass, and a d2 batch — each result equal to its solo run."""
+    from repro_torch.core.plan import PlanCache, get_plan
+    from repro_torch.core.reduce import reduce_colors
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.launch.color import make_graph
+    from repro_torch.serve import ColoringFrontend, ColoringRequest, ColoringService
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    fresh_caches()
+
+    # 1. d1 cuda_fused, all_gather: one wave of 8, then refills.
+    svc = ColoringService(pg, backend="cuda_fused", device=device, cache=PlanCache(),
+                          max_batch=SERVICE_MAX_BATCH)
+    cold, cold_s = wall_s(svc.plan.run)
+    reqs = warm_requests(svc.plan, cold, SERVICE_BATCH, rng)
+    log(f"[service] d1 cuda_fused plan's cold run {cold_s:.4f} s")
+    service_batch("service d1 cuda_fused batch", svc, reqs, ledger,
+                  BACKEND_KERNELS["d1", "cuda_fused"])
+    del svc, cold, reqs
+    fresh_caches()
+
+    # 2. A frontend stream over two topologies, sparse_delta by name (plans
+    # from the cache; the kernel backend makes it scatter with pair_scatter),
+    # one reduction pass, replayed cold then warm.
+    t0 = time.perf_counter()
+    small = partition_graph(make_graph(SERVICE_STREAM_GRAPH), pg.n_parts)
+    log(f"[service] {small.name}: made in {time.perf_counter() - t0:.1f} s")
+    pg.__dict__.pop("_signature", None)         # the first admission hashes again
+    fe = ColoringFrontend(backend="cuda_fused", exchange="sparse_delta", reduce_passes=1,
+                          device=device, cache=PlanCache(), max_batch=SERVICE_MAX_BATCH)
+    pgs = [pg, small]
+    pairs = [(pgs[i % 2], ColoringRequest()) for i in range(SERVICE_STREAM)]
+    ledger.start()
+    t0 = time.perf_counter()
+    sig_s, admit_s, tickets = {}, {}, []
+    for pgx, req in pairs:
+        if pgx.name in sig_s:
+            tickets.append(fe.enqueue(pgx, req))
+            continue
+        _, sig_s[pgx.name] = wall_s(lambda: pgx.signature)
+        ticket, admit_s[pgx.name] = wall_s(lambda: fe.enqueue(pgx, req))
+        tickets.append(ticket)
+    out = fe.drain(tickets)
+    cold_results = [out[t] for t in tickets]
+    cold_s = time.perf_counter() - t0
+    warm_results, warm_s = wall_s(lambda: fe.run_stream(pairs))
+    ledger.end("service frontend stream", BACKEND_KERNELS["d1", "cuda_fused"]
+               + ("pair_scatter",))
+    for pgx in pgs:
+        plan = get_plan(pgx, cache=fe.cache, **fe._cfg)     # the frontend's plan
+        if plan._strategy.scatter != "cuda":
+            raise AssertionError("sparse_delta under cuda_fused must scatter with "
+                                 "pair_scatter")
+        base = plan.run()
+        want = reduce_colors(plan, base, passes=1, cache=fe.cache).merged_result(base)
+        for i, ((p, _), a, b) in enumerate(zip(pairs, cold_results, warm_results)):
+            if p is pgx and not (same_result(a, want) and same_result(b, want)):
+                raise AssertionError(f"service frontend stream request {i} ({pgx.name}) "
+                                     "differs from its solo plan.run + reduce_colors")
+    s = fe.stats
+    log(f"[service] frontend stream of {SERVICE_STREAM} requests alternating "
+        f"{pg.name} and {small.name} (d1 cuda_fused, sparse_delta scatter=cuda, "
+        f"reduce_passes=1): every result equal to its solo plan.run + reduce_colors; "
+        f"cold {cold_s:.4f} s ({SERVICE_STREAM / cold_s:.2f} req/s), warm {warm_s:.4f} s "
+        f"({SERVICE_STREAM / warm_s:.2f} req/s); n_programs={fe.n_programs}")
+    log(f"[service] frontend stream: pg.signature at first admission "
+        f"{ {k: round(v, 4) for k, v in sig_s.items()} } s, the first admission after it "
+        f"(plan build) {({k: round(v, 4) for k, v in admit_s.items()})} s; stats "
+        f"batches={s.batches} refills={s.refills} cold_runs={s.cold_runs} "
+        f"cold_ms={s.cold_ms:.1f} warm_ms_mean={s.warm_ms_mean:.1f}; launches "
+        f"{ {k: v for k, v in ledger.paths['service frontend stream'].items() if v} }")
+    fe.close()
+    del fe, small, pgs, pairs, cold_results, warm_results, out, tickets, plan, base, want
+    fresh_caches()
+
+    # 3. d2 cuda_fused on the second-layer partition.
+    svc = ColoringService(pg2, problem="d2", backend="cuda_fused", device=device,
+                          cache=PlanCache(), max_batch=SERVICE_MAX_BATCH)
+    cold, cold_s = wall_s(svc.plan.run)
+    log(f"[service] d2 cuda_fused plan's cold run {cold_s:.4f} s")
+    service_batch("service d2 cuda_fused batch", svc,
+                  warm_requests(svc.plan, cold, SERVICE_D2_BATCH, rng), ledger,
+                  BACKEND_KERNELS["d2", "cuda_fused"])
+    del svc, cold
+    fresh_caches(host_state=True)
+    log(f"[service] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1745,6 +1969,7 @@ def run(device, args) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.core.distributed import _table, color_distributed
+    from repro_torch.core.exchange import EXCHANGES
     from repro_torch.core.plan import ColoringPlan
     from repro_torch.graph.partition import partition_graph
     from repro_torch.kernels import build
@@ -1927,12 +2152,12 @@ def run(device, args) -> int:
     del fplan
 
     # The ghost exchanges on cuda_fused, one plan each, the same requests.
+    # The sparse two, named under cuda_fused, scatter with pair_scatter.
     for name in ("halo", "delta", "sparse_delta", "hier_delta"):
-        scatter = "cuda" if name in ("sparse_delta", "hier_delta") else None
+        scatter = name in ("sparse_delta", "hier_delta")
         ledger.start()
         t0 = time.perf_counter()
-        xplan = ColoringPlan(pg, backend="cuda_fused", exchange=make_exchange(name, scatter),
-                             device=device)
+        xplan = ColoringPlan(pg, backend="cuda_fused", exchange=name, device=device)
         torch.cuda.synchronize()
         log(f"[main] d1 {name} plan upload (route plan included) "
             f"{time.perf_counter() - t0:.3f} s")
@@ -1945,7 +2170,8 @@ def run(device, args) -> int:
         check_exchange(f"d1 {name}", g, "d1", got, fused)
         if scatter:
             rplan = ColoringPlan(pg, backend="cuda_fused",
-                                 exchange=make_exchange(name, "reference"), device=device)
+                                 exchange=EXCHANGES[name](scatter="reference"),
+                                 device=device)
             plain = [rplan.run()] + [rplan.run(color_mask=m, colors0=c0)
                                      for m, c0 in zip(masks, colors0)]
             del rplan
@@ -2061,7 +2287,7 @@ def run(device, args) -> int:
             for name in ("sparse_delta", "hier_delta"):
                 ledger.start()
                 xplan = ColoringPlan(pg2, problem="d2", backend="cuda_fused",
-                                     exchange=make_exchange(name, "cuda"), device=device)
+                                     exchange=name, device=device)
                 got = [ledger.timed(f"d2 {name} cold", xplan.run)[0],
                        ledger.timed(f"d2 {name} warm 1",
                                     lambda: xplan.run(color_mask=masks[0], colors0=c0))[0]]
@@ -2096,6 +2322,7 @@ def run(device, args) -> int:
     plans_phase(pg, pg2, device, ledger)
     reduce_phase(g, pg, pg2, device, ledger)
     baseline_phase(g, pg, device)
+    service_phase(pg, pg2, device, ledger, args.seed)
     del pg, pg2, g
 
     # -- 4. serving, and flash_attention on the served model's tensors -------------

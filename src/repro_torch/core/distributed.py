@@ -327,7 +327,8 @@ def color_distributed(
     hierarchy, packed wire widths, bytes split intra/inter node).
     ``SparseDeltaExchange(scatter="cuda")`` and
     ``HierDeltaExchange(scatter="cuda")`` apply received pairs with the
-    ``pair_scatter`` kernel.  All give identical colorings and round
+    ``pair_scatter`` kernel, as the two names do under a kernel backend
+    (any but ``"reference"``).  All give identical colorings and round
     counts; each reports its own measured bytes.
 
     engine: ``"simulate"`` (every part stacked on one device) or

@@ -17,8 +17,9 @@ payload its multi-device form would move, measured per round:
   ``(send-slot-id, color)`` pairs per destination (:func:`pack_pairs`),
   routed over the edge-colored plan of
   ``core.a2a_schedule.exchange_route_plan``, and scattered into per-owner
-  slot tables (:func:`apply_pairs`; ``scatter="cuda"`` runs the
-  ``pair_scatter`` kernel).  Bytes: ``4·Σ_edges(1 + 2·sent) / P``.
+  slot tables (:func:`apply_pairs`; ``scatter="cuda"``, the choice of a
+  name under a kernel backend, runs the ``pair_scatter`` kernel).
+  Bytes: ``4·Σ_edges(1 + 2·sent) / P``.
 * ``hier_delta``   — the two-level hierarchy over a ``(node, local)``
   factorization of the part axis (``launch.mesh.factor_parts``): same-node
   pairs direct, cross-node pairs aggregated per destination node, shipped
@@ -517,6 +518,17 @@ def list_exchanges() -> list[str]:
     return EXCHANGES.names()
 
 
-def get_exchange(exchange: str | ExchangeStrategy | None) -> ExchangeStrategy:
-    """Resolve ``exchange`` (name, instance, or None → all_gather)."""
-    return EXCHANGES.resolve(exchange)
+def get_exchange(exchange: str | ExchangeStrategy | None,
+                 backend: str = "reference") -> ExchangeStrategy:
+    """Resolve ``exchange`` (name, instance, or None → all_gather).
+
+    A sparse exchange given by name under a kernel backend (any but
+    ``reference``) scatters received pairs with the ``pair_scatter``
+    kernel; an instance keeps its own ``scatter``.  The two names so fix
+    the whole strategy, and a plan key that holds both fingerprints it.
+    """
+    strategy = EXCHANGES.resolve(exchange)
+    if (not isinstance(exchange, ExchangeStrategy) and backend != "reference"
+            and isinstance(strategy, (SparseDeltaExchange, HierDeltaExchange))):
+        strategy.scatter = "cuda"
+    return strategy

@@ -25,8 +25,14 @@ cache makes every ``color_distributed`` caller warm-path-capable.
 :func:`cached_device_state`, so they share the host tables with plans of
 the same topology.
 
-The counterpart of ``repro/core/plan.py`` without the slot surface of the
-coloring service and without the multi-GPU engine (ROADMAP.md, queue 1).
+The plan also carries the slot surface of the continuous-batching
+service (``repro_torch.serve.coloring``): :attr:`ColoringPlan.raw_step`,
+one speculate→exchange→round transition of one request, and
+``slot_ex_init`` / ``slot_carry`` / ``slot_step`` / ``slot_refill`` /
+``slot_args``, which run it over a carry with one slot per request.
+
+The counterpart of ``repro/core/plan.py`` without the multi-GPU engine
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from repro_torch.core.distributed import (
     build_device_state,
     state_to_torch,
 )
-from repro_torch.core.exchange import ExchangeStrategy, get_exchange
+from repro_torch.core.exchange import ExchangeStrategy, get_exchange, level_split
 from repro_torch.core.validate import num_colors
 from repro_torch.graph.csr import SENTINEL
 from repro_torch.graph.partition import PAD_GID, PartitionedGraph
@@ -93,13 +99,15 @@ class PlanStats:
     """Probes for the compile-once contract (pinned by tests).
 
     Eager PyTorch never traces: ``traces`` counts builds of the plan's
-    loop program (the :func:`_make_loop` closure, once per plan), and
-    ``compiles`` / ``compile_ms`` book the first :meth:`ColoringPlan.run`
-    whole, the run that pays the one-time costs (the kernel libraries'
-    first load, the caching allocator's first blocks).
+    loop program (the :func:`_make_loop` closure, once per plan) and of
+    its slot steps (one per :meth:`ColoringPlan.slot_step` call, which the
+    service makes once per bucket), and ``compiles`` / ``compile_ms`` book
+    the first :meth:`ColoringPlan.run` whole, the run that pays the
+    one-time costs (the kernel libraries' first load, the caching
+    allocator's first blocks).
     """
 
-    traces: int = 0             # builds of the loop program
+    traces: int = 0             # builds of the loop program and slot steps
     runs: int = 0               # plan.run() invocations
     build_ms: float = 0.0       # static-half cost (state, prepare, upload)
     last_run_ms: float = 0.0
@@ -179,6 +187,62 @@ def _plan_key(pg, *, problem, recolor_degrees, backend, exchange, engine,
 
 
 # --------------------------------------------------------------------------
+# The slot engine: one loop transition per request, over a batched carry.
+# --------------------------------------------------------------------------
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts / tuples (exchange
+    state), with ``rest`` trees of the same structure alongside."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+# Carry leaves with the request axis leading on the device; "rounds" and
+# "live" are host arrays (see ColoringPlan.slot_carry).
+_SLOT_TENSORS = ("colors", "ghost", "lose_l", "lose_g", "conf", "total", "bytes")
+
+
+def _build_simulate_step(strategy: ExchangeStrategy, backend: LocalBackend, *,
+                         problem: str, recolor_degrees: bool):
+    """One speculate→exchange→round transition of one request's carry.
+
+    ``step(st, c) -> c'`` over one slot of the batched carry (every tensor
+    without the request axis, ``rounds`` a host int).  The layout is the
+    state :func:`_make_loop` carries plus the per-request scalars the solo
+    loop keeps in locals.  A *fresh* request enters with ``rounds == -1``,
+    ``conf == 1``, ``lose_l = active0`` and ``lose_g`` all false, so its
+    first transition is the solo loop's first step (the initial recolor of
+    the request's active set, the exchange, the round) and every later one
+    is the loop body.  ``repro`` masks the leading recolor of a later
+    transition to an all-false active set, an identity; here it is not
+    called.
+    """
+    step_kw = dict(problem=problem, recolor_degrees=recolor_degrees,
+                   backend=backend)
+
+    def step(st, c):
+        colors = c["colors"]
+        if c["rounds"] < 0:
+            colors = _recolor_part(st, colors, c["ghost"], c["lose_l"],
+                                   c["lose_g"], **step_kw)
+        ghost, nbytes, ex_state = strategy.stacked(st, colors, c["ex_state"])
+        colors, lose_l, lose_g, conf = _round_part(st, colors, ghost, **step_kw)
+        conf = torch.sum(conf)
+        rounds = c["rounds"] + 1
+        nbytes_hist = c["bytes"].clone()
+        nbytes_hist[rounds] = level_split(nbytes)
+        return {"colors": colors, "ghost": ghost, "lose_l": lose_l,
+                "lose_g": lose_g, "ex_state": ex_state, "conf": conf,
+                "rounds": rounds, "total": c["total"] + conf,
+                "bytes": nbytes_hist}
+
+    return step
+
+
+# --------------------------------------------------------------------------
 # The plan.
 # --------------------------------------------------------------------------
 
@@ -227,11 +291,11 @@ class ColoringPlan:
         self._ghost_real = pg.ghost_gid != SENTINEL
         self._ghost_gids = np.clip(pg.ghost_gid, 0, pg.n_global - 1)
         # Copy the strategy so plans never share prepare()-written state.
-        self._strategy = copy.copy(get_exchange(exchange))
+        self._backend = get_backend(backend)
+        self._strategy = copy.copy(get_exchange(exchange, self._backend.name))
         if self._strategy.requires_slab and not pg.halo_neighbors_ok():
             raise ValueError(f"{self._strategy.name} exchange requires slab "
                              "partitions (ghosts on p±1 only)")
-        self._backend = get_backend(backend)
 
         # The cached dict is shared: copy it before popping and merging.
         st_np = dict(cached_device_state(pg, problem) if state_cache
@@ -253,6 +317,9 @@ class ColoringPlan:
             max_rounds=max_rounds,
         )
         self.stats.traces += 1
+        self.raw_step = _build_simulate_step(
+            self._strategy, self._backend, problem=problem,
+            recolor_degrees=recolor_degrees)
         self.stats.build_ms = (time.perf_counter() - t0) * 1e3
 
     def request_inputs(self, color_mask=None, colors0=None, seed=None):
@@ -273,6 +340,108 @@ class ColoringPlan:
             c0 = np.where(self._real, colors0[self._gids], 0)
             g0 = np.where(self._ghost_real, colors0[self._ghost_gids], 0)
         return c0, g0, active0, np.int32(0 if seed is None else seed)
+
+    # -- slot-engine surface (continuous batching) -------------------------
+    #
+    # The service (repro_torch.serve.coloring) runs waves of requests
+    # through a carry with one slot per in-flight request and builds its
+    # per-bucket step and refill programs from these methods.  ``repro``
+    # vmaps the request axis; here the step walks the live slots and runs
+    # raw_step on each slot's row, a contiguous view the kernels take as it
+    # is, so the graph tables are never repeated per request.
+
+    def slot_ex_init(self):
+        """One request's exchange state, part axis leading."""
+        return self._strategy.init_state(self._st)
+
+    def slot_carry(self, bucket: int, ex_init):
+        """All-slots-idle batched carry for a ``bucket``-wide wave.
+
+        ``repro``'s carry, every device leaf with the request axis leading:
+        ``colors (B, P, N)`` and ``ghost (B, P, G)`` int32, ``lose_l`` /
+        ``lose_g`` bool, each exchange-state leaf ``(B, ...)``, ``conf`` /
+        ``total (B,)`` and ``bytes (B, max_rounds + 1, 2)`` int32.  Two
+        leaves are numpy arrays on the host: ``rounds (B,)``, which the host
+        advances as the solo loop's Python counter, and ``live (B,)``, the
+        host's copy of ``(conf > 0) & (rounds < max_rounds)`` (the slots
+        the next step runs).  Idle slots have ``rounds == max_rounds`` and
+        ``conf == 0``, so the step treats them as finished until a refill.
+        """
+        p, nl, g = self.n_parts, self.n_local, self._ghost_gids.shape[1]
+        mr, dev = self.max_rounds, self.device
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return {
+            "colors": zeros(bucket, p, nl),
+            "ghost": zeros(bucket, p, g),
+            "lose_l": zeros(bucket, p, nl, dtype=torch.bool),
+            "lose_g": zeros(bucket, p, g, dtype=torch.bool),
+            "ex_state": _tree_map(
+                lambda x: x.expand((bucket,) + x.shape).clone(), ex_init),
+            "conf": zeros(bucket),
+            "rounds": np.full(bucket, mr, np.int32),
+            "total": zeros(bucket),
+            "bytes": zeros(bucket, mr + 1, 2),
+            "live": np.zeros(bucket, bool),
+        }
+
+    def slot_step(self):
+        """``step(carry) -> (carry, done)`` over the whole slot batch.
+
+        Runs :attr:`raw_step` on each live slot's row and writes the new
+        state back into that row; finished and idle slots are not touched,
+        which is what ``repro``'s select mask gives, bit for bit.  One host
+        sync per step reads the slots' conflict counts; ``done`` is a
+        ``(bucket,)`` numpy bool array.  The carry is updated in place (as
+        ``repro``'s program donates it).
+        """
+        raw, st, mr = self.raw_step, self._st, self.max_rounds
+        self.stats.traces += 1
+
+        def step(carry):
+            for i in np.flatnonzero(carry["live"]):
+                row = {k: carry[k][i] for k in _SLOT_TENSORS}
+                row["ex_state"] = _tree_map(lambda x: x[i], carry["ex_state"])
+                row["rounds"] = int(carry["rounds"][i])
+                new = raw(st, row)
+                for k in _SLOT_TENSORS:
+                    carry[k][i] = new[k]
+                _tree_map(lambda buf, x: buf[i].copy_(x), carry["ex_state"],
+                          new["ex_state"])
+                carry["rounds"][i] = new["rounds"]
+            conf = carry["conf"].cpu().numpy()          # the step's host sync
+            carry["live"] &= (conf > 0) & (carry["rounds"] < mr)
+            return carry, ~carry["live"]
+
+        return step
+
+    def slot_refill(self, ex_init):
+        """``refill(carry, slot, c0, g0, a0) -> carry`` writing a fresh
+        request into one slot (fresh-slot sentinel: ``rounds=-1, conf=1``);
+        every leaf of the slot's row is reset."""
+
+        def refill(carry, slot, c0, g0, a0):
+            i = int(slot)
+            carry["colors"][i] = c0
+            carry["ghost"][i] = g0
+            carry["lose_l"][i] = a0
+            carry["lose_g"][i] = False
+            _tree_map(lambda buf, init: buf[i].copy_(init), carry["ex_state"],
+                      ex_init)
+            carry["conf"][i] = 1
+            carry["total"][i] = 0
+            carry["bytes"][i] = 0
+            carry["rounds"][i] = -1
+            carry["live"][i] = True
+            return carry
+
+        return refill
+
+    def slot_args(self, c0, g0, a0):
+        """One request's refill inputs, uploaded to the plan's device."""
+        return tuple(torch.from_numpy(x).to(self.device) for x in (c0, g0, a0))
 
     def run(self, color_mask=None, colors0=None, seed=None) -> ColoringResult:
         """Execute one recoloring request.

@@ -7,6 +7,8 @@
       [--strategy block|edge_balanced|random] [--node-size L] \
       [--no-recolor-degrees] [--engine auto|simulate] [--baseline] \
       [--repeat 16] [--reduce-passes P [--reduce-order reverse]]
+  PYTHONPATH=src python -m repro_torch.launch.color \
+      --stream "hex:8,6,6|grid:16,16" --requests 8 [options above]
 
 Graph specs: hex:NX,NY,NZ | grid:NX,NY | rmat:SCALE,EF | rgg:N,R |
 myc:K | er:N,DEG | bip:ROWS,COLS,NNZ (with --problem pd2 for the Jacobian
@@ -33,10 +35,20 @@ which picks ``simulate`` on every host (the multi-GPU engine,
 
 --repeat N is the timestep mode (the paper's motivating workload): the
 same topology is recolored N times through one plan of the plan cache
-(``get_plan``), whose device state is uploaded once; ``compile_ms=`` is
-the first timestep, which pays the one-time costs (eager PyTorch compiles
-nothing: the kernel libraries' first load and the allocator's first
-blocks), and ``warm_ms=`` the mean of the later timesteps.
+(``repro_torch.serve.ColoringService``), whose device state is uploaded
+once; ``compile_ms=`` is the time of the programs' first runs, which pay
+the one-time costs (eager PyTorch compiles nothing: the kernel libraries'
+first load and the allocator's first blocks), and ``warm_ms=`` the mean
+execution of the timesteps.
+
+--stream "spec|spec|..." is the mixed-topology replay mode: --requests N
+requests are enqueued round-robin over the listed graph specs and served
+by the continuous-batching ``ColoringFrontend`` (plans routed per
+topology through the plan cache, finished slots refilled from the
+queue).  The stream is replayed twice — the first pass pays every
+topology's plan build and first runs, the second runs warm — and
+requests per second are reported for both, with ``refills=``.  It exits
+1 on an improper coloring or a warm replay that differs from the first.
 
 --reduce-passes P runs up to P iterative color-reduction passes
 (``repro_torch.core.reduce``) over the finished coloring, rebuilding its
@@ -55,7 +67,7 @@ import torch
 from repro_torch.core.backend import list_backends
 from repro_torch.core.baseline import color_baseline
 from repro_torch.core.distributed import PROBLEMS
-from repro_torch.core.exchange import EXCHANGES, list_exchanges
+from repro_torch.core.exchange import list_exchanges
 from repro_torch.core.plan import get_plan
 from repro_torch.core.quality import trajectory
 from repro_torch.core.reduce import list_orders, reduce_colors
@@ -63,6 +75,11 @@ from repro_torch.core.validate import is_proper_d1, is_proper_d2, is_proper_pd2
 from repro_torch.graph import generators as gen
 from repro_torch.graph.partition import partition_graph, two_level_partition
 from repro_torch.launch.mesh import factor_parts
+from repro_torch.serve.coloring import (
+    ColoringFrontend,
+    ColoringRequest,
+    ColoringService,
+)
 
 
 def make_graph(spec: str):
@@ -97,22 +114,65 @@ def make_partition(g, args):
                            second_layer=needs_l2)
 
 
-def make_exchange(args):
-    """The ``--exchange`` strategy; the sparse exchanges scatter received
-    pairs with the ``pair_scatter`` kernel on a kernel backend."""
-    if args.exchange in ("sparse_delta", "hier_delta") and args.backend != "reference":
-        return EXCHANGES[args.exchange](scatter="cuda")
-    return args.exchange
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
+def run_stream(args) -> None:
+    """Mixed-topology replay through the continuous-batching frontend."""
+    specs = [s for s in args.stream.split("|") if s]
+    graphs = [make_graph(s) for s in specs]
+    pgs = []
+    for g, spec in zip(graphs, specs):
+        pg = make_partition(g, args)
+        pgs.append(pg)
+        print(f"[color] topology {spec}: n={g.n} m={g.num_edges} "
+              f"sig={pg.signature[:12]}")
+    fe = ColoringFrontend(
+        problem=args.problem, recolor_degrees=not args.no_recolor_degrees,
+        backend=args.backend, exchange=args.exchange, engine=args.engine,
+        reduce_passes=args.reduce_passes, reduce_order=args.reduce_order,
+        device=args.device)
+    pairs = [(pgs[i % len(pgs)], ColoringRequest())
+             for i in range(args.requests)]
+
+    t0 = time.time()
+    cold_results = fe.run_stream(pairs)         # results are on the host
+    cold_s = time.time() - t0
+    t0 = time.time()
+    results = fe.run_stream(pairs)              # warm replay
+    warm_s = time.time() - t0
+    first_for_pg = {}
+    for (pg, _), cold, warm in zip(pairs, cold_results, results):
+        g = graphs[pgs.index(pg)]
+        first_for_pg.setdefault(id(pg), warm)
+        if not VALIDATORS[args.problem](g, warm.colors):
+            raise SystemExit(f"improper coloring for {g.name}")
+        if (cold.colors != warm.colors).any():
+            raise SystemExit(f"warm replay diverged for {g.name}")
+    s = fe.stats
+    print(f"[color] stream topologies={len(pgs)} requests={args.requests} "
+          f"req/s cold={args.requests / cold_s:.1f} "
+          f"warm={args.requests / warm_s:.1f} "
+          f"(compile {s.cold_ms:.0f}ms over {s.cold_runs} programs; "
+          f"warm {s.warm_ms_mean:.2f}ms/request; refills={s.refills})")
+    # Only topologies the stream actually reached (requests may be fewer).
+    for spec, pg in zip(specs[:args.requests], pgs):
+        res = first_for_pg[id(pg)]
+        print(f"[color]   {spec}: colors={res.n_colors} rounds={res.rounds} "
+              f"comm_total={res.comm_bytes_total}B")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--graph", required=True)
+    ap.add_argument("--graph")
+    ap.add_argument("--stream", metavar="SPEC|SPEC|...",
+                    help="mixed-topology replay: serve --requests N "
+                         "round-robin over these graph specs through the "
+                         "continuous-batching frontend")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="stream mode: total requests to replay")
     ap.add_argument("--parts", type=int, default=8)
     ap.add_argument("--problem", default="d1", choices=PROBLEMS)
     ap.add_argument("--backend", default="cuda", choices=list_backends())
@@ -130,7 +190,7 @@ def main(argv=None) -> None:
                     help="Bozdağ/Zoltan-style batched boundary coloring")
     ap.add_argument("--repeat", type=int, default=1, metavar="N",
                     help="timestep mode: recolor the topology N times "
-                         "through the plan cache, report first vs warm ms")
+                         "through the plan cache, report first-run vs warm ms")
     ap.add_argument("--reduce-passes", type=int, default=0, metavar="P",
                     help="post-color quality: up to P iterative color-"
                          "reduction passes (repro_torch.core.reduce)")
@@ -138,6 +198,11 @@ def main(argv=None) -> None:
                     help="class-rebuild order used by --reduce-passes")
     args = ap.parse_args(argv)
 
+    if args.stream:
+        run_stream(args)
+        return
+    if not args.graph:
+        ap.error("one of --graph or --stream is required")
     g = make_graph(args.graph)
     print(f"[color] graph {g.name}: n={g.n} m={g.num_edges} "
           f"maxdeg={g.max_degree}")
@@ -151,38 +216,36 @@ def main(argv=None) -> None:
         res = color_baseline(pg, problem=args.problem,
                              recolor_degrees=recolor_degrees, device=args.device)
         target = pg
-    else:
-        plan = target = get_plan(
+    elif args.repeat > 1:
+        svc = ColoringService(
             pg, problem=args.problem, recolor_degrees=recolor_degrees,
-            backend=args.backend, exchange=make_exchange(args),
-            engine=args.engine, device=args.device)
-    reduce_kw = dict(passes=args.reduce_passes, order=args.reduce_order,
-                     problem=args.problem, recolor_degrees=recolor_degrees,
-                     backend="reference", exchange="all_gather",
-                     engine=args.engine, device=args.device)
-    if not args.baseline and args.repeat > 1:
-        times = []
+            backend=args.backend, exchange=args.exchange,
+            engine=args.engine, reduce_passes=args.reduce_passes,
+            reduce_order=args.reduce_order, device=args.device)
         for _ in range(args.repeat):
-            t1 = time.perf_counter()
-            res = plan.run()
-            if args.reduce_passes > 0:
-                res = reduce_colors(plan, res, **reduce_kw).merged_result(res)
-            _sync(plan.device)
-            times.append((time.perf_counter() - t1) * 1e3)
-        print(f"[color] repeat={args.repeat} engine={plan.key.engine} "
-              f"compile_ms={times[0]:.1f} (first timestep, paid once) "
-              f"warm_ms={sum(times[1:]) / len(times[1:]):.2f} "
-              f"(mean of {args.repeat - 1} later timesteps)")
+            res = svc.submit()
+        print(f"[color] repeat={args.repeat} engine={svc.engine} "
+              f"compile_ms={svc.stats.cold_ms:.1f} "
+              f"({svc.stats.cold_runs} programs, paid once) "
+              f"warm_ms={svc.stats.warm_ms_mean:.2f} "
+              f"(mean execution of {svc.stats.warm_requests} timesteps)")
     else:
-        if not args.baseline:
-            res = plan.run()
-        if args.reduce_passes > 0:
-            red = reduce_colors(target, res, **reduce_kw)
-            print(f"[color] reduce order={args.reduce_order} "
-                  f"passes={red.passes_run}/{args.reduce_passes} "
-                  f"colors {red.initial_n_colors} -> {red.n_colors} "
-                  f"({trajectory(red.colors_by_pass, red.comm_bytes_by_pass)})")
-            res = red.merged_result(res)
+        target = get_plan(
+            pg, problem=args.problem, recolor_degrees=recolor_degrees,
+            backend=args.backend, exchange=args.exchange,
+            engine=args.engine, device=args.device)
+        res = target.run()
+    if args.reduce_passes > 0 and (args.baseline or args.repeat <= 1):
+        red = reduce_colors(target, res, passes=args.reduce_passes,
+                            order=args.reduce_order, problem=args.problem,
+                            recolor_degrees=recolor_degrees,
+                            backend="reference", exchange="all_gather",
+                            engine=args.engine, device=args.device)
+        print(f"[color] reduce order={args.reduce_order} "
+              f"passes={red.passes_run}/{args.reduce_passes} "
+              f"colors {red.initial_n_colors} -> {red.n_colors} "
+              f"({trajectory(red.colors_by_pass, red.comm_bytes_by_pass)})")
+        res = red.merged_result(res)
     _sync(torch.device(args.device))
     dt = time.time() - t0
     ok = VALIDATORS[args.problem](g, res.colors)
