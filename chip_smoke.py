@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--graph hex:256,256,256] [--parts 8] [--seed 0]
-                          [--baseline-csrc DIR]
+                          [--baseline-csrc DIR] [--shard-map-only]
 
 Run from the root of a checkout.  It exits non-zero on any failure and
 prints no result line when ``torch.cuda.is_available()`` is false.  In
@@ -88,6 +88,16 @@ order it:
      replayed cold and warm, each result equal to the
      solo ``plan.run`` + ``reduce_colors``, with ``pg.signature`` at
      first admission timed alone;
+   - ``[shard_map]``: the multi-GPU engine over NCCL, one rank per card
+     (up to ``--parts``; one card: a group of one in this process, more:
+     one spawned process per card, fed the partition through a temporary
+     ``.npz``), the graph partitioned into one part per rank with a second
+     ghost layer: d1 ``cuda_fused`` with every exchange (the sparse two in
+     both transports) and d2 with ``sparse_delta``, a cold and a warm 10%
+     request each, both run again in one profiler session (NCCL calls and
+     kernels > 0), and one reduction pass on d1, every rank's result equal
+     in every field to ``simulate`` on the same partition on ``cuda:0``;
+     ``--shard-map-only`` builds the kernels and runs this phase alone;
    the cold ``color_distributed`` calls above pass ``cache=False``, and
    the default plan cache is emptied between these phases;
 4. times each kernel and its plain version (CUDA events, median) on the
@@ -1940,6 +1950,291 @@ def service_phase(pg, pg2, device, ledger, seed) -> None:
     log(f"[service] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# [shard_map]: the multi-GPU engine, one process per card over NCCL.
+# --------------------------------------------------------------------------
+
+SHARD_MAP_CASES = (             # (problem, exchange, transport keywords)
+    ("d1", "all_gather", None), ("d1", "halo", None), ("d1", "delta", None),
+    ("d1", "sparse_delta", {"ragged": True}), ("d1", "sparse_delta", {"ragged": False}),
+    ("d1", "hier_delta", {"ragged": False}), ("d1", "hier_delta", {"ragged": True}),
+    ("d2", "sparse_delta", None),
+)
+SHARD_MAP_LIMIT_S = 600        # the parent's wait for a spawned group
+SHARD_MAP_KERNELS = {"d1": ("vb_bit_assign", "collision", "fused_round"),
+                     "d2": ("d2_assign", "collision", "fused_round")}
+
+
+def shard_map_label(problem, name, kw) -> str:
+    return f"{problem} {name}" + ("" if kw is None else f" ragged={kw['ragged']}")
+
+
+def shard_map_exchange(name, kw):
+    """The exchange of a case under ``cuda_fused``: a name, or an instance
+    in one transport that scatters with ``pair_scatter`` as the name does."""
+    from repro_torch.core.exchange import EXCHANGES
+
+    return name if kw is None else EXCHANGES[name](scatter="cuda", **kw)
+
+
+def profile_counts(requests) -> tuple:
+    """Run each of ``requests`` once in one profiler session: (results,
+    device busy ms, NCCL kernels on the device, NCCL calls on the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = [request() for request in requests]
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    nccl_dev = sum(e.count for e in dev if "nccl" in e.key.lower())
+    nccl_host = sum(e.count for e in events
+                    if e.device_type != DeviceType.CUDA and e.key.startswith("nccl:"))
+    return out, busy, nccl_dev, nccl_host
+
+
+def digest(res) -> str:
+    """Every field of a ``ColoringResult`` (or a reduction's colors and
+    trajectory) in one hash: the ranks send only this."""
+    import hashlib
+
+    h = hashlib.blake2b(np.ascontiguousarray(res.colors).tobytes(), digest_size=16)
+    if hasattr(res, "colors_by_pass"):
+        h.update(repr((res.colors_by_pass, res.comm_bytes_by_pass,
+                       res.rounds_by_pass)).encode())
+        return h.hexdigest()
+    for v in (res.rounds, res.converged, res.total_conflicts, res.n_colors,
+              res.comm_bytes_total, res.comm_bytes_per_round):
+        h.update(repr(v).encode())
+    for a in (res.comm_bytes_by_round, res.comm_bytes_by_level):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def shard_map_requests(pg, masks) -> dict:
+    """One rank's requests of the ``[shard_map]`` phase, in the group the
+    caller started: every case cold and warm (each timed, then profiled
+    once), then one reduction pass on d1 ``all_gather``.  Returns the
+    results' digests, seconds, launches and profile counts by case."""
+    import torch
+
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.reduce import reduce_colors
+
+    kernels = wrappers()
+    out = {"results": {}, "seconds": {}, "launches": {}, "profile": {}, "plan_s": {}}
+
+    def timed(fn):
+        torch.distributed.barrier(device_ids=[torch.cuda.current_device()])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    keep = None
+    for problem, name, kw in SHARD_MAP_CASES:
+        label = shard_map_label(problem, name, kw)
+        for k in kernels.values():
+            k.launches = 0
+        plan, out["plan_s"][label] = timed(lambda: build_plan(
+            pg, problem=problem, backend="cuda_fused", exchange=shard_map_exchange(name, kw),
+            engine="shard_map", device="cuda", state_cache=False))
+        cold, cold_s = timed(plan.run)
+        c0 = np.where(masks[0], 0, cold.colors)
+        warm, warm_s = timed(lambda: plan.run(color_mask=masks[0], colors0=c0))
+        out["launches"][label] = {n: k.launches for n, k in kernels.items()}
+        out["results"][label] = (digest(cold), digest(warm))
+        out["seconds"][label] = (cold_s, warm_s)
+        again, *counts = profile_counts(
+            [plan.run, lambda: plan.run(color_mask=masks[0], colors0=c0)])
+        if not all(same_result(a, r) for a, r in zip(again, (cold, warm))):
+            raise AssertionError(f"[shard_map] {label}: a profiled request differs")
+        out["profile"][label] = counts
+        if (problem, name) == ("d1", "all_gather"):
+            keep = plan, cold
+        del plan
+    plan, cold = keep
+    for k in kernels.values():
+        k.launches = 0
+    red, red_s = timed(lambda: reduce_colors(plan, cold, passes=1, cache=False))
+    out["launches"]["d1 reduce"] = {n: k.launches for n, k in kernels.items()}
+    out["results"]["d1 reduce"] = (digest(red),)
+    out["seconds"]["d1 reduce"] = (red_s,)
+    return out
+
+
+def shard_map_rank(rank, world, npz, rendezvous, results) -> None:
+    """A spawned rank of a group over ``world`` cards: joins the NCCL group,
+    loads the partition the parent wrote, runs :func:`shard_map_requests`
+    and sends its output back."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.graph.partition import PartitionedGraph
+
+    try:
+        torch.cuda.set_device(rank)
+        dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=rank,
+                                world_size=world, device_id=torch.device("cuda", rank))
+        with np.load(npz) as z:
+            arrays = {k: z[k] for k in z.files}
+        masks = [arrays.pop("mask")]
+        pg = PartitionedGraph(**{k: (v.item() if v.ndim == 0 else v)
+                                 for k, v in arrays.items()})
+        out = shard_map_requests(pg, masks)
+        dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def shard_map_group(pg, masks, world) -> list[dict]:
+    """Every rank's :func:`shard_map_requests` output.  One card: a group of
+    one in this process.  More: one spawned process per card, handed the
+    partition through a temporary ``.npz`` (not pickled)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rendezvous = os.path.join(tmp, "rendezvous")
+        if world == 1:
+            dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
+                                    world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                return [shard_map_requests(pg, masks)]
+            finally:
+                dist.destroy_process_group()
+        npz = os.path.join(tmp, "partition.npz")
+        fields = {f.name: getattr(pg, f.name) for f in dataclasses.fields(pg)}
+        np.savez(npz, mask=masks[0], **{k: np.asarray(v) for k, v in fields.items()})
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=shard_map_rank,
+                             args=(r, world, npz, rendezvous, results)) for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            got = {}
+            for _ in range(world):
+                rank, status, payload = results.get(timeout=SHARD_MAP_LIMIT_S)
+                if status != "ok":
+                    raise AssertionError(f"[shard_map] rank {rank} failed:\n{payload}")
+                got[rank] = payload
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        torch.cuda.synchronize()
+        return [got[r] for r in range(world)]
+
+
+def shard_map_phase(g, args, ledger) -> None:
+    """``[shard_map]``: the multi-GPU engine over NCCL, one rank per card
+    (up to ``--parts``), on the graph partitioned into one part per rank
+    with a second ghost layer: d1 ``cuda_fused`` with every exchange (the
+    sparse two in both transports) and d2 with ``sparse_delta``, cold and
+    warm, and one reduction pass on d1; every result equal in every field
+    to the ``simulate`` engine on the same partition on ``cuda:0``."""
+    import torch
+
+    from repro_torch.core import validate
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.reduce import reduce_colors
+    from repro_torch.graph.partition import partition_graph
+
+    world = max(1, min(torch.cuda.device_count(), args.parts))
+    t0 = time.perf_counter()
+    pg = partition_graph(g, world, second_layer=True)
+    log(f"[shard_map] ranks={world} on {torch.cuda.device_count()} card(s): "
+        f"partition into {world} part(s) with a second ghost layer "
+        f"{time.perf_counter() - t0:.1f} s (n_local={pg.n_local} ghosts={pg.n_ghost} "
+        f"send={pg.send_width})")
+    if world == 1:
+        log("[shard_map] ranks=1: a group of one in this process; no traffic "
+            "crossed cards (NCCL moves nothing between cards with one rank)")
+    masks = [np.random.default_rng(args.seed + 1).random(g.n) < 0.1]
+    t0 = time.perf_counter()
+    outs = shard_map_group(pg, masks, world)
+    log(f"[shard_map] the group's requests took {time.perf_counter() - t0:.1f} s")
+
+    # The simulate engine on the same partition, on cuda:0.
+    dev = torch.device("cuda", 0)
+    for problem, name, kw in SHARD_MAP_CASES:
+        label = shard_map_label(problem, name, kw)
+        plan = build_plan(pg, problem=problem, backend="cuda_fused",
+                          exchange=shard_map_exchange(name, kw), engine="simulate",
+                          device=dev, state_cache=False)
+        cold, cold_s = wall_s(plan.run)
+        c0 = np.where(masks[0], 0, cold.colors)
+        warm, warm_s = wall_s(lambda: plan.run(color_mask=masks[0], colors0=c0))
+        if (problem, name) == ("d1", "all_gather"):
+            red, red_s = wall_s(lambda: reduce_colors(plan, cold, passes=1, cache=False))
+            if any(o["results"]["d1 reduce"] != (digest(red),) for o in outs):
+                raise AssertionError("[shard_map] d1 reduce: a rank differs from simulate")
+            shard_s = max(o["seconds"]["d1 reduce"][0] for o in outs)
+            log(f"[shard_map] d1 reduce 1 pass: colors {red.colors_by_pass}, "
+                f"{shard_s:.4f} s (simulate {red_s:.4f} s), equal on every rank")
+            book_shard_map(ledger, outs, "d1 reduce", SHARD_MAP_KERNELS["d1"])
+        if kw is None and name in ("all_gather", "sparse_delta"):
+            proper = getattr(validate, VALIDATORS[problem])
+            if not (cold.converged and proper(g, cold.colors)):
+                raise AssertionError(f"[shard_map] {label}: coloring is not proper")
+        want = (digest(cold), digest(warm))
+        for r, o in enumerate(outs):
+            if o["results"][label] != want:
+                raise AssertionError(f"[shard_map] {label}: rank {r} differs from "
+                                     "simulate on cuda:0")
+        del plan
+        secs = [o["seconds"][label] for o in outs]
+        prof = [o["profile"][label] for o in outs]
+        busy = max(p[0] for p in prof)
+        nccl_dev, nccl_host = sum(p[1] for p in prof), sum(p[2] for p in prof)
+        log(f"[shard_map] ranks={world} {label} cuda_fused: plan "
+            f"{max(o['plan_s'][label] for o in outs):.3f} s; cold "
+            f"{max(s[0] for s in secs):.4f} s (simulate {cold_s:.4f}), warm "
+            f"{max(s[1] for s in secs):.4f} s (simulate {warm_s:.4f}); rounds "
+            f"{cold.rounds}/{warm.rounds}; bytes by round cold "
+            f"{[int(b) for b in cold.comm_bytes_by_round]} warm "
+            f"{[int(b) for b in warm.comm_bytes_by_round]}, [intra, inter] cold "
+            f"[{cold.comm_bytes_intra}, {cold.comm_bytes_inter}]; equal to simulate in "
+            f"every field on every rank")
+        log(f"[shard_map]   cold and warm again in one profiler session: device busy "
+            f"{busy:.3f} ms (the busiest rank), NCCL kernels {nccl_dev}, NCCL calls "
+            f"{nccl_host} (all ranks)")
+        if nccl_host <= 0 or nccl_dev <= 0:
+            raise AssertionError(f"[shard_map] {label}: no NCCL call or kernel in the "
+                                 "profiled requests")
+        uses = SHARD_MAP_KERNELS[problem] + (
+            ("pair_scatter",) if world > 1 and name in ("sparse_delta", "hier_delta")
+            else ())
+        book_shard_map(ledger, outs, label, uses)
+    torch.cuda.empty_cache()
+
+
+def book_shard_map(ledger, outs, label, uses) -> None:
+    """Book one case's launches, summed over the ranks, as a path."""
+    counts = {n: sum(o["launches"][label][n] for o in outs) for n in ledger.kernels}
+    ledger.paths[f"shard_map {label}"] = counts
+    log(f"[main] launches on the shard_map {label} path (all ranks): {counts}")
+    for name in uses:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the shard_map {label} path")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default="hex:256,256,256")
@@ -1952,6 +2247,10 @@ def main(argv=None) -> int:
                          "example the parent commit's src/repro_torch/csrc): its fused_round "
                          "detection / fixed-point split, d2_assign, collision and "
                          "pair_scatter are timed beside this one's")
+    ap.add_argument("--shard-map-only", action="store_true",
+                    help="build the kernels and run the [shard_map] phase alone (a "
+                         "group of one rank per card, up to --parts), with no kernels "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2013,6 +2312,14 @@ def run(device, args) -> int:
         baseline = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
         log(f"[build] {', '.join(BASELINE_SOURCES)} of {args.baseline_csrc} in "
             f"{time.perf_counter() - t0:.1f} s")
+
+    if args.shard_map_only:
+        shard_map_phase(make_graph(args.graph), args, Launches())
+        log(card_identity())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 2. kernel vs plain on random inputs ---------------------------------
     cases = kernel_vs_plain_grid(device)
@@ -2323,7 +2630,9 @@ def run(device, args) -> int:
     reduce_phase(g, pg, pg2, device, ledger)
     baseline_phase(g, pg, device)
     service_phase(pg, pg2, device, ledger, args.seed)
-    del pg, pg2, g
+    del pg, pg2
+    shard_map_phase(g, args, ledger)
+    del g
 
     # -- 4. serving, and flash_attention on the served model's tensors -------------
     t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 """Distributed speculate-and-iterate coloring (paper Algorithm 2).
 
 One loop (:func:`_make_loop`) runs the speculate→exchange→round
-structure over the stacked part axis on one device (the ``simulate``
-engine), parameterized by a pluggable compute backend
+structure on both engines: over the stacked part axis on one device
+(``simulate``), or on each rank's own part of a ``torch.distributed``
+group, one process per card (``shard_map``).  It is parameterized by a
+pluggable compute backend
 (``repro_torch.core.backend``: ``reference``, ``cuda`` or ``cuda_fused``)
 and an exchange strategy (``repro_torch.core.exchange``: ``all_gather``,
 ``halo``, ``delta``, ``sparse_delta``, ``hier_delta``).  Per-round payload
@@ -249,7 +251,10 @@ def _make_loop(recolor, round_fn, exchange, all_sum, *, max_rounds: int):
     speculative recoloring: detect round k and recolor round k+1 read the
     same (colors, ghost) tables.  At convergence the trailing recolor has
     an all-false active mask and is the identity.  The loop's test reads
-    the summed conflict count on the host once per round.
+    the summed conflict count on the host once per round.  On
+    ``shard_map`` ``all_sum`` is an ``all_reduce``, so every rank reads
+    the same count and runs the same rounds (a test of a rank-local value
+    would leave the group waiting in a collective).
     """
 
     def loop(colors0, ghost0, active0, no_ghost_active, ex_state0):
@@ -331,10 +336,15 @@ def color_distributed(
     (any but ``"reference"``).  All give identical colorings and round
     counts; each reports its own measured bytes.
 
-    engine: ``"simulate"`` (every part stacked on one device) or
-    ``"auto"``, which gives ``"simulate"`` on every host until the
-    multi-GPU engine is ported (``repro`` picks ``"shard_map"`` there when
-    it has at least ``n_parts > 1`` devices); ``"shard_map"`` raises.
+    engine: ``"simulate"`` (every part stacked on one device),
+    ``"shard_map"`` (the multi-GPU engine: every rank of an initialized
+    ``torch.distributed`` group calls this with the same ``pg``; the world
+    size must equal ``pg.n_parts``, the backend must fit ``device``, nccl
+    for a card (after ``torch.cuda.set_device(LOCAL_RANK)``) and gloo for
+    the CPU, else ``ValueError``; rank ``r`` colors part ``r`` on its
+    device, and every rank returns the same result, equal in every field
+    to ``simulate``'s) or ``"auto"``: ``"shard_map"`` when such a group of
+    ``n_parts > 1`` ranks is initialized, else ``"simulate"``.
 
     color_mask: optional (n_global,) bool — restrict coloring to a vertex
     subset.

@@ -25,19 +25,31 @@ cache makes every ``color_distributed`` caller warm-path-capable.
 :func:`cached_device_state`, so they share the host tables with plans of
 the same topology.
 
+Two engines run the loop.  ``simulate`` stacks every part on one
+device.  ``shard_map`` is the multi-GPU engine: one process per part under
+``torch.distributed`` (NCCL between cards, gloo between CPU processes),
+every rank calling the same entry point with the same
+``PartitionedGraph``.  Rank ``r`` keeps row ``r`` of every device table
+as a stack of one part, so the per-part steps and the kernels run on it
+unchanged; the exchange is the strategy's ``device`` form and the
+conflict count an ``all_reduce``, so every rank runs the same rounds.
+The host tables of all parts stay on every rank, and every rank returns
+the same :class:`ColoringResult`.
+
 The plan also carries the slot surface of the continuous-batching
 service (``repro_torch.serve.coloring``): :attr:`ColoringPlan.raw_step`,
 one speculate→exchange→round transition of one request, and
 ``slot_ex_init`` / ``slot_carry`` / ``slot_step`` / ``slot_refill`` /
-``slot_args``, which run it over a carry with one slot per request.
+``slot_args``, which run it over a carry with one slot per request.  On
+``shard_map`` the slot surface is not ported yet (ROADMAP.md, queue 1).
 
-The counterpart of ``repro/core/plan.py`` without the multi-GPU engine
-(ROADMAP.md, queue 1).
+The counterpart of ``repro/core/plan.py``.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import time
 import weakref
 from collections import OrderedDict
@@ -45,6 +57,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.backend import LocalBackend, get_backend
 from repro_torch.core.distributed import (
@@ -56,7 +69,13 @@ from repro_torch.core.distributed import (
     build_device_state,
     state_to_torch,
 )
-from repro_torch.core.exchange import ExchangeStrategy, get_exchange, level_split
+from repro_torch.core.exchange import (
+    ExchangeStrategy,
+    all_gather,
+    all_sum,
+    get_exchange,
+    level_split,
+)
 from repro_torch.core.validate import num_colors
 from repro_torch.graph.csr import SENTINEL
 from repro_torch.graph.partition import PAD_GID, PartitionedGraph
@@ -81,7 +100,8 @@ class PlanKey:
 
     ``repro``'s key plus ``device``, the resolved device as a string: torch
     places every tensor explicitly, so a CPU plan and a card plan of one
-    topology hold different tables and must not share an entry.
+    topology hold different tables and must not share an entry.  On
+    ``shard_map`` it is the rank's own device (``cuda:<current device>``).
     """
 
     topology: str               # PartitionedGraph.signature
@@ -89,7 +109,7 @@ class PlanKey:
     recolor_degrees: bool
     backend: str
     exchange: str
-    engine: str                 # resolved: "simulate" (the only one ported)
+    engine: str                 # resolved: "shard_map" | "simulate"
     max_rounds: int
     device: str
 
@@ -152,21 +172,70 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _resolve_engine(engine: str) -> str:
-    """``"auto"`` → ``"simulate"``; any other name is returned as it is.
+ENGINES = ("auto", "shard_map", "simulate")
 
-    ``repro`` resolves ``"auto"`` to ``"shard_map"`` when there are at
-    least ``n_parts > 1`` devices.  The port's multi-GPU engine is not
-    ported yet (an explicit ``"shard_map"`` raises at plan build), so
-    ``"auto"`` gives ``"simulate"`` on every host, one card or eight.
+
+def _group_ready() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _resolve_engine(engine: str, n_parts: int) -> str:
+    """``"auto"`` → ``"shard_map"`` when a process group is initialized and
+    its world size equals ``n_parts > 1``, else ``"simulate"``.
+
+    ``repro`` counts the devices it sees; the port counts the ranks of the
+    default group, since its engine runs one process per part.  Cards
+    without a group give ``"simulate"``.
     """
-    return "simulate" if engine == "auto" else engine
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
+    if engine == "auto":
+        return ("shard_map" if _group_ready() and dist.get_world_size() == n_parts > 1
+                else "simulate")
+    return engine
 
 
-def _simulate_only(engine: str) -> None:
-    if engine != "simulate":
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet (ROADMAP.md, queue 1)")
+def _engine_device(engine: str, device) -> torch.device:
+    """The plan's device: on ``shard_map`` a CUDA device without an index is
+    the rank's current card (``torch.cuda.set_device(LOCAL_RANK)``)."""
+    dev = resolve_device(device)
+    if engine == "shard_map" and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _check_group(n_parts: int, device: torch.device) -> int:
+    """The rank of this process in a group that can run a ``shard_map``
+    plan of ``n_parts`` parts on ``device``; raises ``ValueError`` else."""
+    if not _group_ready():
+        raise ValueError(
+            "engine 'shard_map' needs an initialized torch.distributed process "
+            "group, one process per part: start the processes with torchrun "
+            "--nproc-per-node=<parts> and call torch.distributed.init_process_group "
+            "(nccl on cards, gloo on the CPU) before building the plan")
+    world = dist.get_world_size()
+    if world != n_parts:
+        raise ValueError(
+            f"engine 'shard_map' runs one rank per part: the process group has "
+            f"{world} ranks and the partition {n_parts} parts")
+    backend, want = str(dist.get_backend()), "nccl" if device.type == "cuda" else "gloo"
+    if want not in backend:
+        raise ValueError(f"a {backend} process group cannot run a plan on {device}: "
+                         f"it needs {want}")
+    return dist.get_rank()
+
+
+def _ranks_agree(token: bytes, what: str, device: torch.device) -> None:
+    """Raise ``ValueError`` on every rank unless all ranks hold the same
+    ``token`` (one all-gather of its hash).  A disagreement would
+    otherwise surface as a hang in a later collective."""
+    digest = hashlib.blake2b(token, digest_size=8).digest()
+    mine = torch.tensor([int.from_bytes(digest, "little", signed=True)],
+                        dtype=torch.int64, device=device)
+    hashes = all_gather(mine, dist.get_world_size()).cpu().view(-1)
+    if bool((hashes != hashes[0]).any()):
+        raise ValueError(f"the ranks derived different {what}s: "
+                         f"{[f'{int(h) & (2**64 - 1):016x}' for h in hashes]}")
 
 
 def _plan_key(pg, *, problem, recolor_degrees, backend, exchange, engine,
@@ -176,13 +245,14 @@ def _plan_key(pg, *, problem, recolor_degrees, backend, exchange, engine,
     ``backend``/``exchange`` are resolved to their canonical instance
     names, so a registry alias and its instance hash to the same key.
     """
+    engine = _resolve_engine(engine, pg.n_parts)
     return PlanKey(
         topology=pg.signature, problem=problem,
         recolor_degrees=recolor_degrees,
         backend=get_backend(backend).name,
         exchange=get_exchange(exchange).name,
-        engine=_resolve_engine(engine),
-        max_rounds=max_rounds, device=str(resolve_device(device)),
+        engine=engine,
+        max_rounds=max_rounds, device=str(_engine_device(engine, device)),
     )
 
 
@@ -242,6 +312,19 @@ def _build_simulate_step(strategy: ExchangeStrategy, backend: LocalBackend, *,
     return step
 
 
+def _rank_rows(st_np: dict, rank: int, n_parts: int) -> dict:
+    """Row ``rank`` of every stacked table as a stack of one (``v[r:r+1]``);
+    0-d constants whole."""
+    out = {}
+    for k, v in st_np.items():
+        v = np.asarray(v)
+        if v.ndim and v.shape[0] != n_parts:
+            raise ValueError(f"device table {k!r} of shape {v.shape} is not "
+                             f"stacked over the {n_parts} parts")
+        out[k] = v[rank:rank + 1] if v.ndim else v
+    return out
+
+
 # --------------------------------------------------------------------------
 # The plan.
 # --------------------------------------------------------------------------
@@ -259,22 +342,31 @@ class ColoringPlan:
     plan's device for every request.  A strategy that ``requires_slab``
     raises ``ValueError`` on a partition whose ghosts are not all on
     parts p±1.
+
+    ``engine="shard_map"`` (see the module docstring) is built by every
+    rank of the default process group, whose world size must equal
+    ``pg.n_parts`` and whose backend must fit the device (``nccl`` for a
+    card, ``gloo`` for the CPU); otherwise ``ValueError``.  The build
+    all-gathers a hash of the plan's route schedule, so ranks that derived
+    different ones raise here instead of hanging in a later round.
     """
 
     def __init__(self, pg: PartitionedGraph, *, problem: str = "d1",
                  recolor_degrees: bool = True,
                  backend: str | LocalBackend = "reference",
                  exchange: str | ExchangeStrategy = "all_gather",
-                 max_rounds: int = 64, device=None,
+                 max_rounds: int = 64, device=None, engine: str = "simulate",
                  key: PlanKey | None = None, state_cache: bool = False):
         t0 = time.perf_counter()
-        self.device = resolve_device(device)
-        if key is not None:
-            _simulate_only(key.engine)
+        self.engine = key.engine if key is not None else _resolve_engine(
+            engine, pg.n_parts)
+        self.device = _engine_device(self.engine, device)
+        self._rank = (_check_group(pg.n_parts, self.device)
+                      if self.engine == "shard_map" else None)
         self._key = key
         self._key_of = None if key is not None else partial(
             _plan_key, pg, problem=problem, recolor_degrees=recolor_degrees,
-            backend=backend, exchange=exchange, engine="simulate",
+            backend=backend, exchange=exchange, engine=self.engine,
             max_rounds=max_rounds, device=self.device)
         self.stats = PlanStats()
         self.problem = problem
@@ -304,41 +396,74 @@ class ColoringPlan:
         self._active0 = st_np.pop("active0")
         # Route plans are colored on the plan's own device.
         st_np.update(self._strategy.prepare(pg, st_np, device=self.device))
-        self._st = state_to_torch(st_np, self.device)
-
+        # The global size of the tables, the same on every rank (repro's
+        # sharded plan reports the global size too).
+        self._st_bytes = sum(int(v.nbytes) for v in st_np.values())
         step_kw = dict(problem=problem, recolor_degrees=recolor_degrees,
                        backend=self._backend)
-        st = self._st
+        if self._rank is None:
+            st = self._st = state_to_torch(st_np, self.device)
+            exchange, total = partial(self._strategy.stacked, st), torch.sum
+            self.raw_step = _build_simulate_step(
+                self._strategy, self._backend, problem=problem,
+                recolor_degrees=recolor_degrees)
+        else:
+            # The first collective of the plan, before any point-to-point
+            # transfer (NCCL wants every rank in a group's first call).
+            _ranks_agree(repr((
+                problem, recolor_degrees, self._backend.name, self._strategy.name,
+                self.n_parts, self.n_local, self.n_global, max_rounds,
+                self._strategy.route_phases())).encode(), "route plan", self.device)
+            st = self._st = state_to_torch(_rank_rows(st_np, self._rank, self.n_parts),
+                                           self.device)
+            exchange = partial(self._strategy.device, st, n_parts=self.n_parts)
+            total = lambda conf: all_sum(conf.sum())    # noqa: E731
+            self.raw_step = None
         self._loop = _make_loop(
             partial(_recolor_part, st, **step_kw),
             partial(_round_part, st, **step_kw),
-            partial(self._strategy.stacked, st),
-            torch.sum,
-            max_rounds=max_rounds,
-        )
+            exchange, total, max_rounds=max_rounds)
         self.stats.traces += 1
-        self.raw_step = _build_simulate_step(
-            self._strategy, self._backend, problem=problem,
-            recolor_degrees=recolor_degrees)
         self.stats.build_ms = (time.perf_counter() - t0) * 1e3
+
+    @property
+    def _rows(self) -> slice:
+        """The parts this process holds: all, or its rank's."""
+        r = self._rank
+        return slice(None) if r is None else slice(r, r + 1)
+
+    def check_ranks_agree(self, token: bytes, what: str) -> None:
+        """On ``shard_map``, raise ``ValueError`` unless every rank passes
+        the same ``token``; nothing on ``simulate``."""
+        if self._rank is not None:
+            _ranks_agree(token, what, self.device)
+
+    def _slots_ported(self) -> None:
+        if self._rank is not None:
+            raise NotImplementedError(
+                "the slot surface (and so ColoringService / ColoringFrontend) is not "
+                "ported to engine 'shard_map' yet (ROADMAP.md, queue 1)")
 
     def request_inputs(self, color_mask=None, colors0=None, seed=None):
         """Host-side per-request inputs ``(colors0, ghost0, active0, seed)``.
 
-        Stacked ``(P, ...)`` numpy arrays.  ``ghost0`` replicates
-        ``colors0`` onto each part's ghost slots, so warm starts see frozen
-        cross-partition colors in the very first recolor.
+        Stacked ``(P, ...)`` numpy arrays; on ``shard_map`` the rank's row
+        only, ``(1, ...)``.  ``ghost0`` replicates ``colors0`` onto each
+        part's ghost slots, so warm starts see frozen cross-partition colors
+        in the very first recolor.
         """
-        active0 = self._active0
+        rows = self._rows
+        gids, ghost_gids = self._gids[rows], self._ghost_gids[rows]
+        active0 = self._active0[rows]
         if color_mask is not None:
-            active0 = active0 & np.asarray(color_mask, bool)[self._gids]
+            active0 = active0 & np.asarray(color_mask, bool)[gids]
         if colors0 is None:
-            c0 = np.zeros((self.n_parts, self.n_local), np.int32)
-            g0 = np.zeros(self._ghost_gids.shape, np.int32)
+            c0 = np.zeros(gids.shape, np.int32)
+            g0 = np.zeros(ghost_gids.shape, np.int32)
         else:
             colors0 = np.asarray(colors0, np.int32)
-            c0 = np.where(self._real, colors0[self._gids], 0)
-            g0 = np.where(self._ghost_real, colors0[self._ghost_gids], 0)
+            c0 = np.where(self._real[rows], colors0[gids], 0)
+            g0 = np.where(self._ghost_real[rows], colors0[ghost_gids], 0)
         return c0, g0, active0, np.int32(0 if seed is None else seed)
 
     # -- slot-engine surface (continuous batching) -------------------------
@@ -352,6 +477,7 @@ class ColoringPlan:
 
     def slot_ex_init(self):
         """One request's exchange state, part axis leading."""
+        self._slots_ported()
         return self._strategy.init_state(self._st)
 
     def slot_carry(self, bucket: int, ex_init):
@@ -367,6 +493,7 @@ class ColoringPlan:
         the next step runs).  Idle slots have ``rounds == max_rounds`` and
         ``conf == 0``, so the step treats them as finished until a refill.
         """
+        self._slots_ported()
         p, nl, g = self.n_parts, self.n_local, self._ghost_gids.shape[1]
         mr, dev = self.max_rounds, self.device
 
@@ -397,6 +524,7 @@ class ColoringPlan:
         ``(bucket,)`` numpy bool array.  The carry is updated in place (as
         ``repro``'s program donates it).
         """
+        self._slots_ported()
         raw, st, mr = self.raw_step, self._st, self.max_rounds
         self.stats.traces += 1
 
@@ -421,6 +549,7 @@ class ColoringPlan:
         """``refill(carry, slot, c0, g0, a0) -> carry`` writing a fresh
         request into one slot (fresh-slot sentinel: ``rounds=-1, conf=1``);
         every leaf of the slot's row is reset."""
+        self._slots_ported()
 
         def refill(carry, slot, c0, g0, a0):
             i = int(slot)
@@ -441,6 +570,7 @@ class ColoringPlan:
 
     def slot_args(self, c0, g0, a0):
         """One request's refill inputs, uploaded to the plan's device."""
+        self._slots_ported()
         return tuple(torch.from_numpy(x).to(self.device) for x in (c0, g0, a0))
 
     def run(self, color_mask=None, colors0=None, seed=None) -> ColoringResult:
@@ -474,6 +604,8 @@ class ColoringPlan:
         return res
 
     def _result(self, colors, rounds, conf, total, nbytes) -> ColoringResult:
+        if self._rank is not None:                  # every rank's (1, N) row
+            colors = all_gather(colors[0], self.n_parts)
         by_level = nbytes.cpu().numpy()[: rounds + 1]
         by_round = by_level.sum(axis=1)
         gathered = _gather_colors(self, colors.cpu().numpy())
@@ -513,14 +645,14 @@ class ColoringPlan:
 
     @property
     def nbytes(self) -> int:
-        """Bytes this plan pins while cached: its device tensors
-        (``numel() * element_size()``) and the host gather tables of the
-        request inputs."""
-        st = sum(v.numel() * v.element_size() for v in self._st.values())
+        """Bytes this plan pins while cached: its device tables and the host
+        gather tables of the request inputs.  On ``shard_map`` the tables'
+        global size, the same on every rank (as ``repro`` reports for a
+        sharded plan), so every rank's cache evicts alike."""
         host = sum(int(a.nbytes) for a in
                    (self._active0, self._gids, self._ghost_gids,
                     self._real, self._ghost_real, self._vertex_gid))
-        return st + host
+        return self._st_bytes + host
 
 
 # --------------------------------------------------------------------------
@@ -657,10 +789,9 @@ def build_plan(
     device: ``None`` means ``"cuda"``; pass ``"cpu"`` to run on the CPU.
     The plan makes its key on first read (see :attr:`ColoringPlan.key`).
     """
-    _simulate_only(_resolve_engine(engine))
     return ColoringPlan(pg, problem=problem, recolor_degrees=recolor_degrees,
                         backend=backend, exchange=exchange,
-                        max_rounds=max_rounds, device=device,
+                        max_rounds=max_rounds, device=device, engine=engine,
                         state_cache=state_cache)
 
 

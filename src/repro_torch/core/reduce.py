@@ -431,6 +431,9 @@ def reduce_colors_batch(
             m = masks[e]
             _, n_classes[e], vrank[e] = rplans[e].select(
                 best[e] if m is None else np.where(m, best[e], 0))
+            # On shard_map every rank must rebuild the same classes in the
+            # same order, or the ranks would run different supersteps.
+            plan.check_ranks_agree(vrank[e].tobytes(), "class selection")
             acc[e] = (np.zeros_like(best[e]) if m is None
                       else np.where(m, 0, best[e]))
         for j in range(max(n_classes[e] for e in act)):

@@ -9,12 +9,15 @@
       [--repeat 16] [--reduce-passes P [--reduce-order reverse]]
   PYTHONPATH=src python -m repro_torch.launch.color \
       --stream "hex:8,6,6|grid:16,16" --requests 8 [options above]
+  PYTHONPATH=src torchrun --nproc-per-node=4 -m repro_torch.launch.color \
+      --graph hex:24,8,8 --parts 4 --engine shard_map [--device cpu]
 
 Graph specs: hex:NX,NY,NZ | grid:NX,NY | rmat:SCALE,EF | rgg:N,R |
 myc:K | er:N,DEG | bip:ROWS,COLS,NNZ (with --problem pd2 for the Jacobian
 workload)
 
-Colors on the ``simulate`` engine (every part stacked on one device).
+Colors on the ``simulate`` engine (every part stacked on one device) or,
+with --engine shard_map, on the multi-GPU engine.
 --problem selects distance-1, distance-1 with two ghost layers,
 distance-2 or partial distance-2 (all but d1 partition with a second
 ghost layer).  --backend selects the plain PyTorch ``reference``, the
@@ -27,9 +30,16 @@ with the ``pair_scatter`` kernel when --backend is a kernel backend.
 --strategy selects the partitioner and --node-size L a two-level
 partition of L parts per node (0 = flat; pairs with ``hier_delta``).
 
---engine selects the engine: ``simulate``, or ``auto`` (the default),
-which picks ``simulate`` on every host (the multi-GPU engine,
-``shard_map``, is not ported yet and raises).
+--engine selects the engine: ``simulate``, ``shard_map`` or ``auto`` (the
+default, ``simulate`` in a single process).  ``shard_map`` runs one
+process per part under ``torchrun --nproc-per-node=P``: each process joins
+the group torchrun describes in its environment (``nccl`` after
+``torch.cuda.set_device(LOCAL_RANK)`` for --device cuda, ``gloo`` for
+--device cpu) and colors its own part; rank 0 prints the result lines,
+every rank validates the coloring and exits 1 on an improper one.
+Without torchrun's environment it exits with a message.  --stream,
+--repeat and --baseline do not run on it (the slot surface is not ported
+to ``shard_map`` yet; the baseline runs on one device).
 --baseline colors with the Bozdağ/Zoltan-style batched-boundary baseline
 (``repro_torch.core.baseline``; the reference backend and ``all_gather``).
 
@@ -60,9 +70,11 @@ for its problem.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.backend import list_backends
 from repro_torch.core.baseline import color_baseline
@@ -164,6 +176,27 @@ def run_stream(args) -> None:
               f"comm_total={res.comm_bytes_total}B")
 
 
+def start_group(args) -> int:
+    """``--engine shard_map``: join the process group torchrun describes in
+    the environment and return this process's rank."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise SystemExit(
+            "--engine shard_map runs one process per part: start it with "
+            f"torchrun --nproc-per-node={args.parts} -m repro_torch.launch.color ...")
+    if args.stream or args.repeat > 1 or args.baseline:
+        raise SystemExit(
+            "--stream, --repeat and --baseline do not run on --engine shard_map "
+            "(the slot surface is not ported to it yet, ROADMAP.md queue 1; the "
+            "baseline runs on one device)")
+    if args.device == "cpu":
+        dist.init_process_group("gloo")
+    else:
+        card = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(card)
+        dist.init_process_group("nccl", device_id=card)
+    return dist.get_rank()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph")
@@ -198,20 +231,30 @@ def main(argv=None) -> None:
                     help="class-rebuild order used by --reduce-passes")
     args = ap.parse_args(argv)
 
+    rank = start_group(args) if args.engine == "shard_map" else 0
+    try:
+        run_one(ap, args, print if rank == 0 else (lambda *a, **k: None))
+    finally:
+        if args.engine == "shard_map" and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_one(ap, args, say) -> None:
+    """One coloring (or a stream), printed by ``say``."""
     if args.stream:
         run_stream(args)
         return
     if not args.graph:
         ap.error("one of --graph or --stream is required")
     g = make_graph(args.graph)
-    print(f"[color] graph {g.name}: n={g.n} m={g.num_edges} "
-          f"maxdeg={g.max_degree}")
+    say(f"[color] graph {g.name}: n={g.n} m={g.num_edges} "
+        f"maxdeg={g.max_degree}")
     pg = make_partition(g, args)
     recolor_degrees = not args.no_recolor_degrees
     t0 = time.time()
     if args.baseline:
         if args.backend != "reference" or args.exchange != "all_gather":
-            print("[color] note: --baseline uses the reference backend and "
+            say("[color] note: --baseline uses the reference backend and "
                   "all_gather exchange; --backend/--exchange are ignored")
         res = color_baseline(pg, problem=args.problem,
                              recolor_degrees=recolor_degrees, device=args.device)
@@ -224,7 +267,7 @@ def main(argv=None) -> None:
             reduce_order=args.reduce_order, device=args.device)
         for _ in range(args.repeat):
             res = svc.submit()
-        print(f"[color] repeat={args.repeat} engine={svc.engine} "
+        say(f"[color] repeat={args.repeat} engine={svc.engine} "
               f"compile_ms={svc.stats.cold_ms:.1f} "
               f"({svc.stats.cold_runs} programs, paid once) "
               f"warm_ms={svc.stats.warm_ms_mean:.2f} "
@@ -241,7 +284,7 @@ def main(argv=None) -> None:
                             recolor_degrees=recolor_degrees,
                             backend="reference", exchange="all_gather",
                             engine=args.engine, device=args.device)
-        print(f"[color] reduce order={args.reduce_order} "
+        say(f"[color] reduce order={args.reduce_order} "
               f"passes={red.passes_run}/{args.reduce_passes} "
               f"colors {red.initial_n_colors} -> {red.n_colors} "
               f"({trajectory(red.colors_by_pass, red.comm_bytes_by_pass)})")
@@ -249,7 +292,7 @@ def main(argv=None) -> None:
     _sync(torch.device(args.device))
     dt = time.time() - t0
     ok = VALIDATORS[args.problem](g, res.colors)
-    print(f"[color] {res.problem} parts={res.n_parts} "
+    say(f"[color] {res.problem} parts={res.n_parts} "
           f"backend={res.backend} exchange={res.exchange} "
           f"colors={res.n_colors} rounds={res.rounds} "
           f"conflicts={res.total_conflicts} proper={ok} "
@@ -258,10 +301,10 @@ def main(argv=None) -> None:
           f"comm_total={res.comm_bytes_total}B time={dt:.2f}s "
           f"(device={args.device})")
     if res.comm_bytes_by_round is not None:
-        print(f"[color] comm_bytes_by_round="
+        say(f"[color] comm_bytes_by_round="
               f"{[int(b) for b in res.comm_bytes_by_round]}")
     if res.comm_bytes_by_level is not None and res.comm_bytes_intra:
-        print(f"[color] comm_bytes intra-node={res.comm_bytes_intra}B "
+        say(f"[color] comm_bytes intra-node={res.comm_bytes_intra}B "
               f"inter-node={res.comm_bytes_inter}B")
     if not ok:
         raise SystemExit(1)

@@ -58,7 +58,8 @@ requests that happened to ride the first batch of a bucket.
 
 The counterpart of ``repro/serve/coloring.py``, with the same names,
 behavior and messages, adapted to eager PyTorch on the ``simulate``
-engine (the only one ported):
+engine (the slot surface of the ``shard_map`` engine is not ported yet:
+a frontend or service on it raises ``NotImplementedError``):
 
 * **Programs are closures.**  ``_SlotGroup._program`` builds a bucket's
   step or refill closure from the plan's slot surface where ``repro``
@@ -562,6 +563,10 @@ class ColoringFrontend:
         device=None,
     ):
         del compilation_cache
+        if engine == "shard_map":
+            raise NotImplementedError(
+                "ColoringFrontend / ColoringService run on the slot surface, which "
+                "is not ported to engine 'shard_map' yet (ROADMAP.md, queue 1)")
         if isinstance(cache, PlanCache):
             self.cache = cache
         elif cache is False:
@@ -628,6 +633,7 @@ class ColoringFrontend:
 
     def _group_for(self, pg: PartitionedGraph) -> _SlotGroup:
         plan = get_plan(pg, cache=self.cache, **self._cfg)
+        plan._slots_ported()            # "auto" may resolve to shard_map
         group = self._groups.get(plan.key)
         if group is None or group.plan is not plan:
             if group is not None and group.busy():
@@ -895,6 +901,7 @@ class ColoringService:
         self._signature = self._frontend.register(pg)
         self.plan = get_plan(pg, cache=self._frontend.cache,
                              **self._frontend._cfg)
+        self.plan._slots_ported()
         self.engine = self.plan.key.engine
         self.stats = self._frontend.stats
         self.reduce_passes = reduce_passes

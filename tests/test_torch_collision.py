@@ -192,7 +192,8 @@ def test_local_color_d1_cuda_full_table_matches_jax():
 
 def test_engine_auto_matches_repro():
     """``engine="auto"`` resolves as ``repro``'s ``_resolve_engine`` does:
-    on one device of the plan's type, four parts run on ``simulate``."""
+    on one device of the plan's type, four parts run on ``simulate``.  An
+    explicit ``"shard_map"`` without a process group raises, naming it."""
     jpg = j_partition(j_gen.hex_mesh(6, 4, 4), 4)
     tpg = t_partition(t_gen.hex_mesh(6, 4, 4), 4)
     want = j_dist.color_distributed(jpg, problem="d1", backend="reference",
@@ -200,16 +201,17 @@ def test_engine_auto_matches_repro():
     got = t_dist.color_distributed(tpg, problem="d1", backend="reference", engine="auto",
                                    exchange="all_gather", device="cpu")
     assert_same_result(got, want)
-    with pytest.raises(NotImplementedError, match="shard_map"):
+    with pytest.raises(ValueError, match="shard_map.*process group"):
         t_dist.color_distributed(tpg, engine="shard_map", device="cpu")
 
 
 def test_resolve_engine(monkeypatch):
-    """``"auto"`` gives ``"simulate"`` even where ``repro`` would pick
-    ``shard_map`` (eight cards for four parts): the port's multi-GPU engine
-    is not ported, and an explicit ``"shard_map"`` is kept to raise."""
+    """``"auto"`` gives ``"simulate"`` without a process group even where
+    ``repro`` would pick ``shard_map`` (eight cards for four parts): the
+    port's multi-GPU engine counts ranks, not cards.  An explicit name is
+    kept as it is."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    assert _resolve_engine("auto") == "simulate"
-    assert _resolve_engine("simulate") == "simulate"
-    assert _resolve_engine("shard_map") == "shard_map"
+    assert _resolve_engine("auto", 4) == "simulate"
+    assert _resolve_engine("simulate", 4) == "simulate"
+    assert _resolve_engine("shard_map", 4) == "shard_map"

@@ -178,7 +178,7 @@ def test_color_single_device_matches():
 
 def test_unported_paths_raise():
     _, _, tg, tpg = _pgs("hex", 3)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="process group"):
         t_dist.color_distributed(tpg, engine="shard_map", device="cpu")
     with pytest.raises(ValueError, match="unknown exchange"):
         ColoringPlan(tpg, exchange="rdma", device="cpu")

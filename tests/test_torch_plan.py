@@ -201,13 +201,14 @@ def test_plan_key_records_resolved_engine():
         backend="reference", exchange="all_gather", engine="simulate",
         max_rounds=64, device="cpu")
     assert PG.signature == J_PG.signature and want.engine == plan.key.engine
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="process group"):
         build_plan(PG, engine="shard_map", **CPU)
 
 
 def test_default_engine_runs_on_a_multi_card_host(monkeypatch):
     """Eight cards for three parts, where ``repro``'s ``"auto"`` would pick
-    ``shard_map``: the port's defaults still color on ``simulate``."""
+    ``shard_map``: without a process group the port's defaults color on
+    ``simulate``, and an explicit ``"shard_map"`` asks for the group."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     got = color_distributed(PG, **CPU)
@@ -215,7 +216,7 @@ def test_default_engine_runs_on_a_multi_card_host(monkeypatch):
                                                      cache=False))
     assert plan_key_for(PG, **CPU).engine == "simulate"
     assert get_plan(PG, **CPU).key.engine == "simulate"
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="process group"):
         get_plan(PG, engine="shard_map", cache=False, **CPU)
 
 
