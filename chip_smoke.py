@@ -90,14 +90,21 @@ order it:
      first admission timed alone;
    - ``[shard_map]``: the multi-GPU engine over NCCL, one rank per card
      (up to ``--parts``; one card: a group of one in this process, more:
-     one spawned process per card, fed the partition through a temporary
-     ``.npz``), the graph partitioned into one part per rank with a second
-     ghost layer: d1 ``cuda_fused`` with every exchange (the sparse two in
-     both transports) and d2 with ``sparse_delta``, a cold and a warm 10%
-     request each, both run again in one profiler session (NCCL calls and
-     kernels > 0), and one reduction pass on d1, every rank's result equal
-     in every field to ``simulate`` on the same partition on ``cuda:0``;
-     ``--shard-map-only`` builds the kernels and runs this phase alone;
+     one spawned process per card, fed the partitions through temporary
+     ``.npz`` files), the graph partitioned into one part per rank with a
+     second ghost layer: d1 ``cuda_fused`` with every exchange (the sparse
+     two in both transports) and d2 with ``sparse_delta``, a cold and a
+     warm 10% request each, both run again in one profiler session (NCCL
+     calls and kernels > 0), one reduction pass on d1, then the service
+     on the group as ``[service]`` drives it: ``ColoringService.run_batch``
+     of 12 warm 10% d1 ``cuda_fused`` requests (``max_batch`` 8, refills >
+     0) and a ``ColoringFrontend`` stream of 8 alternating the graph and
+     ``hex:128,128,128`` (``sparse_delta``, one reduction pass) cold and
+     warm, each equal on every rank to its solo run on the engine (plus
+     ``reduce_colors``), logged beside ``[service]``'s numbers; every
+     rank's result equal in every field to ``simulate`` on the same
+     partition on ``cuda:0``; ``--shard-map-only`` builds the kernels and
+     runs this phase alone;
    the cold ``color_distributed`` calls above pass ``cache=False``, and
    the default plan cache is emptied between these phases;
 4. times each kernel and its plain version (CUDA events, median) on the
@@ -1743,27 +1750,26 @@ SERVICE_MAX_BATCH = 8
 SERVICE_D2_BATCH = 4            # d2 warm requests
 SERVICE_STREAM = 8              # frontend stream, alternating two topologies
 SERVICE_STREAM_GRAPH = "hex:128,128,128"
+SERVICE_NUMBERS: dict[str, str] = {}    # [service]'s, printed beside [shard_map]'s
 
 
 def counting_steps(plan) -> dict:
-    """Count the plan's slot-engine steps and the slot transitions in them,
-    and time every step (instance attributes over the plan's own, read when
-    a bucket's step is built).  A step starts after the last host sync and
-    ends with its own, so its wall time holds its device work; each
-    bucket's first step, which the service books in ``cold_ms`` and not in
-    ``warm_ms_mean``, is timed as well."""
+    """Count the plan's slot-engine steps and the slot transitions in them
+    (the live slots a step runs), and time every step (an instance
+    attribute over the plan's own, read when a bucket's step is built).  A
+    step starts after the last host sync and ends with its own, so its wall
+    time holds its device work; each bucket's first step, which the
+    service books in ``cold_ms`` and not in ``warm_ms_mean``, is timed as
+    well."""
     counts = {"steps": 0, "transitions": 0, "step_s": 0.0}
-    make, raw = plan.slot_step, plan.raw_step
-
-    def raw_step(st, c):
-        counts["transitions"] += 1
-        return raw(st, c)
+    make = plan.slot_step
 
     def slot_step():
         step = make()
 
         def counted(carry):
             counts["steps"] += 1
+            counts["transitions"] += int(carry["live"].sum())
             t0 = time.perf_counter()
             try:
                 return step(carry)
@@ -1772,7 +1778,7 @@ def counting_steps(plan) -> dict:
 
         return counted
 
-    plan.raw_step, plan.slot_step = raw_step, slot_step
+    plan.slot_step = slot_step
     return counts
 
 
@@ -1834,6 +1840,9 @@ def service_batch(label, svc, reqs, ledger, uses) -> None:
     log(f"[service] {label}: {len(reqs)} warm 10% requests equal to their solo plan.run "
         f"in every field; batch {batch_s:.4f} s ({len(reqs) / batch_s:.2f} req/s) against "
         f"solo {solo_s:.4f} s summed ({len(reqs) / solo_s:.2f} req/s)")
+    SERVICE_NUMBERS[label] = (
+        f"batch {batch_s:.4f} s ({len(reqs) / batch_s:.2f} req/s), solo {solo_s:.4f} s, "
+        f"{syncs / max(counts['steps'], 1):.1f} syncs a step")
     log(f"[service] {label}: stats batches={s.batches} refills={s.refills} "
         f"cold_runs={s.cold_runs} cold_ms={s.cold_ms:.1f} "
         f"warm_ms_mean={s.warm_ms_mean:.1f}; {counts['steps']} steps, "
@@ -1933,6 +1942,9 @@ def service_phase(pg, pg2, device, ledger, seed) -> None:
         f"batches={s.batches} refills={s.refills} cold_runs={s.cold_runs} "
         f"cold_ms={s.cold_ms:.1f} warm_ms_mean={s.warm_ms_mean:.1f}; launches "
         f"{ {k: v for k, v in ledger.paths['service frontend stream'].items() if v} }")
+    SERVICE_NUMBERS["service frontend stream"] = (
+        f"cold {cold_s:.4f} s ({SERVICE_STREAM / cold_s:.2f} req/s), warm {warm_s:.4f} s "
+        f"({SERVICE_STREAM / warm_s:.2f} req/s)")
     fe.close()
     del fe, small, pgs, pairs, cold_results, warm_results, out, tickets, plan, base, want
     fresh_caches()
@@ -1963,6 +1975,7 @@ SHARD_MAP_CASES = (             # (problem, exchange, transport keywords)
 SHARD_MAP_LIMIT_S = 600        # the parent's wait for a spawned group
 SHARD_MAP_KERNELS = {"d1": ("vb_bit_assign", "collision", "fused_round"),
                      "d2": ("d2_assign", "collision", "fused_round")}
+SHARD_MAP_SERVICE = ("service batch", "service stream")   # the service's paths
 
 
 def shard_map_label(problem, name, kw) -> str:
@@ -2011,22 +2024,27 @@ def digest(res) -> str:
               res.comm_bytes_total, res.comm_bytes_per_round):
         h.update(repr(v).encode())
     for a in (res.comm_bytes_by_round, res.comm_bytes_by_level):
-        h.update(np.ascontiguousarray(a).tobytes())
+        # A reduction's merged result keeps no bytes by round or level.
+        h.update(b"none" if a is None else np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
 
 
-def shard_map_requests(pg, masks) -> dict:
+def shard_map_requests(pgs, masks, seed) -> dict:
     """One rank's requests of the ``[shard_map]`` phase, in the group the
-    caller started: every case cold and warm (each timed, then profiled
-    once), then one reduction pass on d1 ``all_gather``.  Returns the
-    results' digests, seconds, launches and profile counts by case."""
+    caller started, on ``pgs`` (the graph's partition, then
+    ``SERVICE_STREAM_GRAPH``'s): every case cold and warm (each timed, then
+    profiled once), one reduction pass on d1 ``all_gather``, then the
+    service (:func:`shard_map_service`).  Returns the results' digests,
+    seconds, launches and profile counts by case."""
     import torch
 
     from repro_torch.core.plan import build_plan
     from repro_torch.core.reduce import reduce_colors
 
+    pg = pgs[0]
     kernels = wrappers()
-    out = {"results": {}, "seconds": {}, "launches": {}, "profile": {}, "plan_s": {}}
+    out = {"results": {}, "seconds": {}, "launches": {}, "profile": {}, "plan_s": {},
+           "service": {}}
 
     def timed(fn):
         torch.distributed.barrier(device_ids=[torch.cuda.current_device()])
@@ -2065,28 +2083,111 @@ def shard_map_requests(pg, masks) -> dict:
     out["launches"]["d1 reduce"] = {n: k.launches for n, k in kernels.items()}
     out["results"]["d1 reduce"] = (digest(red),)
     out["seconds"]["d1 reduce"] = (red_s,)
+    del plan, cold, keep, red
+    shard_map_service(pgs, seed, out, kernels, timed)
     return out
 
 
-def shard_map_rank(rank, world, npz, rendezvous, results) -> None:
+def shard_map_service(pgs, seed, out, kernels, timed) -> None:
+    """The service on the group, as ``[service]`` drives it on one card:
+    ``ColoringService.run_batch`` of ``SERVICE_BATCH`` warm 10% d1
+    ``cuda_fused`` requests (``max_batch`` 8, so refills), and a
+    ``ColoringFrontend`` stream of ``SERVICE_STREAM`` requests alternating
+    ``pgs`` (``sparse_delta``, one reduction pass), cold then warm.  Every
+    result must equal its solo run on the engine (plus ``reduce_colors``
+    for the stream), or this raises; ``out`` gets their digests for the
+    parent's ``simulate``, the seconds, the launches and the stats."""
+    from repro_torch.core.plan import PlanCache, get_plan
+    from repro_torch.core.reduce import reduce_colors
+    from repro_torch.serve import ColoringFrontend, ColoringRequest, ColoringService
+
+    def launches(label=None):
+        if label is not None:
+            out["launches"][label] = {n: k.launches for n, k in kernels.items()}
+        for k in kernels.values():
+            k.launches = 0
+
+    svc = ColoringService(pgs[0], backend="cuda_fused", engine="shard_map",
+                          device="cuda", cache=PlanCache(), max_batch=SERVICE_MAX_BATCH)
+    plan = svc.plan
+    reqs = warm_requests(plan, plan.run(), SERVICE_BATCH, np.random.default_rng(seed))
+    solo = [timed(lambda: plan.run(**r.plan_inputs())) for r in reqs]
+    counts = counting_steps(plan)
+    launches()
+    (got, syncs), batch_s = timed(lambda: count_syncs(lambda: svc.run_batch(reqs)))
+    launches("service batch")
+    for i, (a, (b, _)) in enumerate(zip(got, solo, strict=True)):
+        if not same_result(a, b):
+            raise AssertionError(f"[shard_map] service batch request {i}: differs from "
+                                 "its solo plan.run on the engine")
+    st = svc.stats
+    if st.refills <= 0:
+        raise AssertionError("[shard_map] service batch: no slot was refilled")
+    out["results"]["service batch"] = tuple(digest(r) for r in got)
+    out["seconds"]["service batch"] = (batch_s, sum(t for _, t in solo))
+    out["service"]["service batch"] = (
+        f"{counts['steps']} steps, {counts['transitions']} slot transitions, {syncs} host "
+        f"syncs ({syncs / max(counts['steps'], 1):.1f} a step), steps {counts['step_s']:.4f}"
+        f" s; batches={st.batches} refills={st.refills} cold_runs={st.cold_runs} "
+        f"cold_ms={st.cold_ms:.1f} warm_ms_mean={st.warm_ms_mean:.1f}")
+    del svc, plan, reqs, solo, got
+
+    fe = ColoringFrontend(backend="cuda_fused", exchange="sparse_delta", engine="shard_map",
+                          reduce_passes=1, device="cuda", cache=PlanCache(),
+                          max_batch=SERVICE_MAX_BATCH)
+    pairs = [(pgs[i % 2], ColoringRequest()) for i in range(SERVICE_STREAM)]
+    launches()
+    cold, cold_s = timed(lambda: fe.run_stream(pairs))
+    warm, warm_s = timed(lambda: fe.run_stream(pairs))
+    launches("service stream")
+    wants = []
+    for pgx in pgs:
+        plan = get_plan(pgx, cache=fe.cache, **fe._cfg)     # the frontend's plan
+        base = plan.run()
+        wants.append(reduce_colors(plan, base, passes=1, cache=fe.cache)
+                     .merged_result(base))
+        for i, ((p, _), a, b) in enumerate(zip(pairs, cold, warm)):
+            if p is pgx and not (same_result(a, wants[-1]) and same_result(b, wants[-1])):
+                raise AssertionError(f"[shard_map] service stream request {i}: differs "
+                                     "from its solo plan.run + reduce_colors on the engine")
+    st = fe.stats
+    out["results"]["service stream"] = tuple(digest(w) for w in wants)
+    out["seconds"]["service stream"] = (cold_s, warm_s)
+    out["service"]["service stream"] = (
+        f"batches={st.batches} refills={st.refills} cold_runs={st.cold_runs} "
+        f"cold_ms={st.cold_ms:.1f} warm_ms_mean={st.warm_ms_mean:.1f} "
+        f"n_programs={fe.n_programs}")
+    fe.close()
+
+
+def load_partition(npz):
+    """A partition :func:`shard_map_group` wrote, and the extra arrays
+    beside it."""
+    import dataclasses
+
+    from repro_torch.graph.partition import PartitionedGraph
+
+    with np.load(npz) as z:
+        arrays = {k: z[k] for k in z.files}
+    names = {f.name for f in dataclasses.fields(PartitionedGraph)}
+    pg = PartitionedGraph(**{k: (v.item() if v.ndim == 0 else v)
+                             for k, v in arrays.items() if k in names})
+    return pg, {k: v for k, v in arrays.items() if k not in names}
+
+
+def shard_map_rank(rank, world, npzs, rendezvous, results, seed) -> None:
     """A spawned rank of a group over ``world`` cards: joins the NCCL group,
-    loads the partition the parent wrote, runs :func:`shard_map_requests`
+    loads the partitions the parent wrote, runs :func:`shard_map_requests`
     and sends its output back."""
     import torch
     import torch.distributed as dist
-
-    from repro_torch.graph.partition import PartitionedGraph
 
     try:
         torch.cuda.set_device(rank)
         dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=rank,
                                 world_size=world, device_id=torch.device("cuda", rank))
-        with np.load(npz) as z:
-            arrays = {k: z[k] for k in z.files}
-        masks = [arrays.pop("mask")]
-        pg = PartitionedGraph(**{k: (v.item() if v.ndim == 0 else v)
-                                 for k, v in arrays.items()})
-        out = shard_map_requests(pg, masks)
+        (pg, extra), (small, _) = (load_partition(npz) for npz in npzs)
+        out = shard_map_requests((pg, small), [extra["mask"]], seed)
         dist.destroy_process_group()
         results.put((rank, "ok", out))
     except BaseException:
@@ -2095,10 +2196,10 @@ def shard_map_rank(rank, world, npz, rendezvous, results) -> None:
         results.put((rank, "error", traceback.format_exc()))
 
 
-def shard_map_group(pg, masks, world) -> list[dict]:
+def shard_map_group(pgs, masks, world, seed) -> list[dict]:
     """Every rank's :func:`shard_map_requests` output.  One card: a group of
     one in this process.  More: one spawned process per card, handed the
-    partition through a temporary ``.npz`` (not pickled)."""
+    partitions through temporary ``.npz`` files (not pickled)."""
     import dataclasses
     import tempfile
 
@@ -2112,16 +2213,19 @@ def shard_map_group(pg, masks, world) -> list[dict]:
             dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
                                     world_size=1, device_id=torch.device("cuda", 0))
             try:
-                return [shard_map_requests(pg, masks)]
+                return [shard_map_requests(pgs, masks, seed)]
             finally:
                 dist.destroy_process_group()
-        npz = os.path.join(tmp, "partition.npz")
-        fields = {f.name: getattr(pg, f.name) for f in dataclasses.fields(pg)}
-        np.savez(npz, mask=masks[0], **{k: np.asarray(v) for k, v in fields.items()})
+        npzs = []
+        for i, pg in enumerate(pgs):
+            npzs.append(os.path.join(tmp, f"partition{i}.npz"))
+            fields = {f.name: np.asarray(getattr(pg, f.name)) for f in dataclasses.fields(pg)}
+            np.savez(npzs[-1], **fields, **({"mask": masks[0]} if i == 0 else {}))
         ctx = mp.get_context("spawn")
         results = ctx.Queue()
         procs = [ctx.Process(target=shard_map_rank,
-                             args=(r, world, npz, rendezvous, results)) for r in range(world)]
+                             args=(r, world, npzs, rendezvous, results, seed))
+                 for r in range(world)]
         for p in procs:
             p.start()
         try:
@@ -2147,15 +2251,19 @@ def shard_map_phase(g, args, ledger) -> None:
     (up to ``--parts``), on the graph partitioned into one part per rank
     with a second ghost layer: d1 ``cuda_fused`` with every exchange (the
     sparse two in both transports) and d2 with ``sparse_delta``, cold and
-    warm, and one reduction pass on d1; every result equal in every field
-    to the ``simulate`` engine on the same partition on ``cuda:0``."""
+    warm, one reduction pass on d1, and the service (a batch through
+    ``ColoringService``, a stream through ``ColoringFrontend`` alternating
+    the graph and ``SERVICE_STREAM_GRAPH``); every result equal in every
+    field to the ``simulate`` engine on the same partition on ``cuda:0``."""
     import torch
 
     from repro_torch.core import validate
     from repro_torch.core.plan import build_plan
     from repro_torch.core.reduce import reduce_colors
     from repro_torch.graph.partition import partition_graph
+    from repro_torch.launch.color import make_graph
 
+    t_phase = time.perf_counter()
     world = max(1, min(torch.cuda.device_count(), args.parts))
     t0 = time.perf_counter()
     pg = partition_graph(g, world, second_layer=True)
@@ -2166,9 +2274,13 @@ def shard_map_phase(g, args, ledger) -> None:
     if world == 1:
         log("[shard_map] ranks=1: a group of one in this process; no traffic "
             "crossed cards (NCCL moves nothing between cards with one rank)")
+    t0 = time.perf_counter()
+    small = partition_graph(make_graph(SERVICE_STREAM_GRAPH), world, second_layer=True)
+    log(f"[shard_map] {small.name} for the service's stream: made and partitioned into "
+        f"{world} part(s) with a second ghost layer in {time.perf_counter() - t0:.1f} s")
     masks = [np.random.default_rng(args.seed + 1).random(g.n) < 0.1]
     t0 = time.perf_counter()
-    outs = shard_map_group(pg, masks, world)
+    outs = shard_map_group((pg, small), masks, world, args.seed + 2)
     log(f"[shard_map] the group's requests took {time.perf_counter() - t0:.1f} s")
 
     # The simulate engine on the same partition, on cuda:0.
@@ -2222,7 +2334,64 @@ def shard_map_phase(g, args, ledger) -> None:
             ("pair_scatter",) if world > 1 and name in ("sparse_delta", "hier_delta")
             else ())
         book_shard_map(ledger, outs, label, uses)
+    t0 = time.perf_counter()
+    shard_map_service_check(pg, small, args.seed + 2, outs, ledger)
     torch.cuda.empty_cache()
+    log(f"[shard_map] the service's simulate references {time.perf_counter() - t0:.1f} s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def shard_map_service_check(pg, small, seed, outs, ledger) -> None:
+    """The service's results on the group against ``simulate`` on
+    ``cuda:0`` (the batch's requests remade from ``seed``, the stream's
+    solo run and reduction once a topology), its numbers beside
+    ``[service]``'s, and its paths' launches booked."""
+    import torch
+
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.reduce import reduce_colors
+
+    world, dev = len(outs), torch.device("cuda", 0)
+    plan = build_plan(pg, backend="cuda_fused", engine="simulate", device=dev,
+                      state_cache=False)
+    reqs = warm_requests(plan, plan.run(), SERVICE_BATCH, np.random.default_rng(seed))
+    want = tuple(digest(plan.run(**r.plan_inputs())) for r in reqs)
+    del plan, reqs
+    wants = []
+    for pgx in (pg, small):
+        plan = build_plan(pgx, backend="cuda_fused", exchange="sparse_delta",
+                          engine="simulate", device=dev, state_cache=False)
+        base = plan.run()
+        wants.append(digest(reduce_colors(plan, base, passes=1, cache=False)
+                            .merged_result(base)))
+        del plan, base
+    for label, w in zip(SHARD_MAP_SERVICE, (want, tuple(wants))):
+        for r, o in enumerate(outs):
+            if o["results"][label] != w:
+                raise AssertionError(f"[shard_map] {label}: rank {r} differs from "
+                                     "simulate on cuda:0")
+    batch_s = max(o["seconds"]["service batch"][0] for o in outs)
+    solo_s = max(o["seconds"]["service batch"][1] for o in outs)
+    log(f"[shard_map] ranks={world} service batch: {SERVICE_BATCH} warm 10% d1 cuda_fused "
+        f"requests (max_batch {SERVICE_MAX_BATCH}) equal on every rank to their solo "
+        f"plan.run on the engine and to simulate on cuda:0; batch {batch_s:.4f} s "
+        f"({SERVICE_BATCH / batch_s:.2f} req/s) against solo {solo_s:.4f} s summed "
+        f"({SERVICE_BATCH / solo_s:.2f} req/s), {batch_s / solo_s:.2f}x; rank 0: "
+        f"{outs[0]['service']['service batch']} ([service] on simulate, 8 parts: "
+        f"{SERVICE_NUMBERS.get('service d1 cuda_fused batch', 'not run')})")
+    cold_s = max(o["seconds"]["service stream"][0] for o in outs)
+    warm_s = max(o["seconds"]["service stream"][1] for o in outs)
+    log(f"[shard_map] ranks={world} service stream: {SERVICE_STREAM} requests alternating "
+        f"{pg.name} and {small.name} (d1 cuda_fused, sparse_delta, reduce_passes=1) equal "
+        f"on every rank to their solo plan.run + reduce_colors on the engine and to "
+        f"simulate on cuda:0; cold {cold_s:.4f} s ({SERVICE_STREAM / cold_s:.2f} req/s), "
+        f"warm {warm_s:.4f} s ({SERVICE_STREAM / warm_s:.2f} req/s); rank 0: "
+        f"{outs[0]['service']['service stream']} ([service] on simulate, 8 parts: "
+        f"{SERVICE_NUMBERS.get('service frontend stream', 'not run')})")
+    d1 = SHARD_MAP_KERNELS["d1"]
+    book_shard_map(ledger, outs, "service batch", d1)
+    book_shard_map(ledger, outs, "service stream",
+                   d1 + (("pair_scatter",) if world > 1 else ()))
 
 
 def book_shard_map(ledger, outs, label, uses) -> None:

@@ -41,7 +41,9 @@ service (``repro_torch.serve.coloring``): :attr:`ColoringPlan.raw_step`,
 one speculate→exchange→round transition of one request, and
 ``slot_ex_init`` / ``slot_carry`` / ``slot_step`` / ``slot_refill`` /
 ``slot_args``, which run it over a carry with one slot per request.  On
-``shard_map`` the slot surface is not ported yet (ROADMAP.md, queue 1).
+``shard_map`` the carry holds the rank's row of every request, the step
+runs each live slot's exchange collectives in slot order on every rank,
+and one ``all_reduce`` a step sums the live slots' conflict counts.
 
 The counterpart of ``repro/core/plan.py``.
 """
@@ -270,25 +272,31 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-# Carry leaves with the request axis leading on the device; "rounds" and
-# "live" are host arrays (see ColoringPlan.slot_carry).
-_SLOT_TENSORS = ("colors", "ghost", "lose_l", "lose_g", "conf", "total", "bytes")
+# Carry leaves with the request axis leading on the device that a slot's
+# transition writes back; "conf" and "total" are booked after the step's
+# conflict-count sum, "rounds" and "live" are host arrays (see
+# ColoringPlan.slot_carry).
+_SLOT_ROW = ("colors", "ghost", "lose_l", "lose_g", "bytes")
 
 
-def _build_simulate_step(strategy: ExchangeStrategy, backend: LocalBackend, *,
-                         problem: str, recolor_degrees: bool):
+def _build_transition(exchange, *, backend: LocalBackend, problem: str,
+                      recolor_degrees: bool):
     """One speculate→exchange→round transition of one request's carry.
 
-    ``step(st, c) -> c'`` over one slot of the batched carry (every tensor
-    without the request axis, ``rounds`` a host int).  The layout is the
-    state :func:`_make_loop` carries plus the per-request scalars the solo
-    loop keeps in locals.  A *fresh* request enters with ``rounds == -1``,
-    ``conf == 1``, ``lose_l = active0`` and ``lose_g`` all false, so its
-    first transition is the solo loop's first step (the initial recolor of
-    the request's active set, the exchange, the round) and every later one
-    is the loop body.  ``repro`` masks the leading recolor of a later
-    transition to an all-false active set, an identity; here it is not
-    called.
+    ``step(st, c) -> (c', conf)`` over one slot of the batched carry (every
+    tensor without the request axis, ``rounds`` a host int), where
+    ``exchange(st, colors, ex_state)`` is the strategy's ``stacked`` or
+    ``device`` form and ``conf`` the conflicts of the parts this process
+    holds (every part on ``simulate``, the rank's on ``shard_map``); ``c'``
+    lacks ``conf`` and ``total``, which need the group's count.  The layout
+    is the state :func:`_make_loop` carries plus the per-request scalars
+    the solo loop keeps in locals.  A *fresh* request enters with
+    ``rounds == -1``, ``conf == 1``, ``lose_l = active0`` and ``lose_g``
+    all false, so its first transition is the solo loop's first step (the
+    initial recolor of the request's active set, the exchange, the round)
+    and every later one is the loop body.  ``repro`` masks the leading
+    recolor of a later transition to an all-false active set, an identity;
+    here it is not called.
     """
     step_kw = dict(problem=problem, recolor_degrees=recolor_degrees,
                    backend=backend)
@@ -298,16 +306,31 @@ def _build_simulate_step(strategy: ExchangeStrategy, backend: LocalBackend, *,
         if c["rounds"] < 0:
             colors = _recolor_part(st, colors, c["ghost"], c["lose_l"],
                                    c["lose_g"], **step_kw)
-        ghost, nbytes, ex_state = strategy.stacked(st, colors, c["ex_state"])
+        ghost, nbytes, ex_state = exchange(st, colors, c["ex_state"])
         colors, lose_l, lose_g, conf = _round_part(st, colors, ghost, **step_kw)
-        conf = torch.sum(conf)
         rounds = c["rounds"] + 1
         nbytes_hist = c["bytes"].clone()
         nbytes_hist[rounds] = level_split(nbytes)
         return {"colors": colors, "ghost": ghost, "lose_l": lose_l,
-                "lose_g": lose_g, "ex_state": ex_state, "conf": conf,
-                "rounds": rounds, "total": c["total"] + conf,
-                "bytes": nbytes_hist}
+                "lose_g": lose_g, "ex_state": ex_state, "rounds": rounds,
+                "bytes": nbytes_hist}, torch.sum(conf)
+
+    return step
+
+
+def _same(x):
+    return x
+
+
+def _counted(transition, count):
+    """:attr:`ColoringPlan.raw_step`: ``transition`` with its conflict count
+    summed over the group by ``count`` and booked into ``conf`` / ``total``."""
+
+    def step(st, c):
+        new, conf = transition(st, c)
+        conf = count(conf)
+        new.update(conf=conf, total=c["total"] + conf)
+        return new
 
     return step
 
@@ -403,10 +426,8 @@ class ColoringPlan:
                        backend=self._backend)
         if self._rank is None:
             st = self._st = state_to_torch(st_np, self.device)
-            exchange, total = partial(self._strategy.stacked, st), torch.sum
-            self.raw_step = _build_simulate_step(
-                self._strategy, self._backend, problem=problem,
-                recolor_degrees=recolor_degrees)
+            # Every part's conflicts are already in this process's sum.
+            form, count = self._strategy.stacked, _same
         else:
             # The first collective of the plan, before any point-to-point
             # transfer (NCCL wants every rank in a group's first call).
@@ -416,13 +437,16 @@ class ColoringPlan:
                 self._strategy.route_phases())).encode(), "route plan", self.device)
             st = self._st = state_to_torch(_rank_rows(st_np, self._rank, self.n_parts),
                                            self.device)
-            exchange = partial(self._strategy.device, st, n_parts=self.n_parts)
-            total = lambda conf: all_sum(conf.sum())    # noqa: E731
-            self.raw_step = None
+            form, count = partial(self._strategy.device, n_parts=self.n_parts), all_sum
         self._loop = _make_loop(
             partial(_recolor_part, st, **step_kw),
             partial(_round_part, st, **step_kw),
-            exchange, total, max_rounds=max_rounds)
+            partial(form, st), lambda conf: count(torch.sum(conf)),
+            max_rounds=max_rounds)
+        self._transition = _build_transition(form, **step_kw)
+        self._count = count
+        # One request's transition, the group's conflict count included.
+        self.raw_step = _counted(self._transition, count)
         self.stats.traces += 1
         self.stats.build_ms = (time.perf_counter() - t0) * 1e3
 
@@ -438,11 +462,16 @@ class ColoringPlan:
         if self._rank is not None:
             _ranks_agree(token, what, self.device)
 
-    def _slots_ported(self) -> None:
-        if self._rank is not None:
-            raise NotImplementedError(
-                "the slot surface (and so ColoringService / ColoringFrontend) is not "
-                "ported to engine 'shard_map' yet (ROADMAP.md, queue 1)")
+    def group_clock_ms(self) -> float:
+        """``time.monotonic()`` in ms; on ``shard_map`` rank 0's, broadcast
+        to every rank (one small collective), so a request's deadline gives
+        the same scheduling key on every rank."""
+        now = time.monotonic() * 1e3
+        if self._rank is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t.item())
 
     def request_inputs(self, color_mask=None, colors0=None, seed=None):
         """Host-side per-request inputs ``(colors0, ghost0, active0, seed)``.
@@ -472,12 +501,12 @@ class ColoringPlan:
     # through a carry with one slot per in-flight request and builds its
     # per-bucket step and refill programs from these methods.  ``repro``
     # vmaps the request axis; here the step walks the live slots and runs
-    # raw_step on each slot's row, a contiguous view the kernels take as it
-    # is, so the graph tables are never repeated per request.
+    # one transition on each slot's row, a contiguous view the kernels take
+    # as it is, so the graph tables are never repeated per request.  On
+    # shard_map a slot's row is the rank's part of that request.
 
     def slot_ex_init(self):
         """One request's exchange state, part axis leading."""
-        self._slots_ported()
         return self._strategy.init_state(self._st)
 
     def slot_carry(self, bucket: int, ex_init):
@@ -486,15 +515,17 @@ class ColoringPlan:
         ``repro``'s carry, every device leaf with the request axis leading:
         ``colors (B, P, N)`` and ``ghost (B, P, G)`` int32, ``lose_l`` /
         ``lose_g`` bool, each exchange-state leaf ``(B, ...)``, ``conf`` /
-        ``total (B,)`` and ``bytes (B, max_rounds + 1, 2)`` int32.  Two
+        ``total (B,)`` and ``bytes (B, max_rounds + 1, 2)`` int32.  On
+        ``shard_map`` ``P`` is 1, the rank's row; ``conf`` and ``total`` are
+        the group's, the same on every rank.  Two
         leaves are numpy arrays on the host: ``rounds (B,)``, which the host
         advances as the solo loop's Python counter, and ``live (B,)``, the
         host's copy of ``(conf > 0) & (rounds < max_rounds)`` (the slots
         the next step runs).  Idle slots have ``rounds == max_rounds`` and
         ``conf == 0``, so the step treats them as finished until a refill.
         """
-        self._slots_ported()
-        p, nl, g = self.n_parts, self.n_local, self._ghost_gids.shape[1]
+        p = self.n_parts if self._rank is None else 1
+        nl, g = self.n_local, self._ghost_gids.shape[1]
         mr, dev = self.max_rounds, self.device
 
         def zeros(*shape, dtype=torch.int32):
@@ -517,28 +548,38 @@ class ColoringPlan:
     def slot_step(self):
         """``step(carry) -> (carry, done)`` over the whole slot batch.
 
-        Runs :attr:`raw_step` on each live slot's row and writes the new
-        state back into that row; finished and idle slots are not touched,
-        which is what ``repro``'s select mask gives, bit for bit.  One host
-        sync per step reads the slots' conflict counts; ``done`` is a
+        Runs one transition on each live slot's row, in ascending slot
+        order, and writes the new state back into that row; finished and
+        idle slots are not touched, which is what ``repro``'s select mask
+        gives, bit for bit.  The live slots' conflict counts are then summed
+        over the group at once (one ``all_reduce`` of a vector on
+        ``shard_map``, where every rank runs the slots' collectives in the
+        same order) and booked into ``conf`` / ``total``; one host sync per
+        step reads them, so every rank sees the same ``done``, a
         ``(bucket,)`` numpy bool array.  The carry is updated in place (as
         ``repro``'s program donates it).
         """
-        self._slots_ported()
-        raw, st, mr = self.raw_step, self._st, self.max_rounds
+        trans, count, st, mr = self._transition, self._count, self._st, self.max_rounds
         self.stats.traces += 1
 
         def step(carry):
-            for i in np.flatnonzero(carry["live"]):
-                row = {k: carry[k][i] for k in _SLOT_TENSORS}
+            live, confs = np.flatnonzero(carry["live"]), []
+            for i in live:
+                row = {k: carry[k][i] for k in _SLOT_ROW}
                 row["ex_state"] = _tree_map(lambda x: x[i], carry["ex_state"])
                 row["rounds"] = int(carry["rounds"][i])
-                new = raw(st, row)
-                for k in _SLOT_TENSORS:
+                new, conf = trans(st, row)
+                for k in _SLOT_ROW:
                     carry[k][i] = new[k]
                 _tree_map(lambda buf, x: buf[i].copy_(x), carry["ex_state"],
                           new["ex_state"])
                 carry["rounds"][i] = new["rounds"]
+                confs.append(conf)
+            if confs:
+                conf = count(torch.stack(confs))
+                for j, i in enumerate(live):
+                    carry["conf"][i] = conf[j]
+                    carry["total"][i] += conf[j]
             conf = carry["conf"].cpu().numpy()          # the step's host sync
             carry["live"] &= (conf > 0) & (carry["rounds"] < mr)
             return carry, ~carry["live"]
@@ -549,7 +590,6 @@ class ColoringPlan:
         """``refill(carry, slot, c0, g0, a0) -> carry`` writing a fresh
         request into one slot (fresh-slot sentinel: ``rounds=-1, conf=1``);
         every leaf of the slot's row is reset."""
-        self._slots_ported()
 
         def refill(carry, slot, c0, g0, a0):
             i = int(slot)
@@ -570,7 +610,6 @@ class ColoringPlan:
 
     def slot_args(self, c0, g0, a0):
         """One request's refill inputs, uploaded to the plan's device."""
-        self._slots_ported()
         return tuple(torch.from_numpy(x).to(self.device) for x in (c0, g0, a0))
 
     def run(self, color_mask=None, colors0=None, seed=None) -> ColoringResult:

@@ -37,9 +37,10 @@ the group torchrun describes in its environment (``nccl`` after
 ``torch.cuda.set_device(LOCAL_RANK)`` for --device cuda, ``gloo`` for
 --device cpu) and colors its own part; rank 0 prints the result lines,
 every rank validates the coloring and exits 1 on an improper one.
-Without torchrun's environment it exits with a message.  --stream,
---repeat and --baseline do not run on it (the slot surface is not ported
-to ``shard_map`` yet; the baseline runs on one device).
+Without torchrun's environment it exits with a message.  --stream and
+--repeat serve through ``ColoringFrontend`` / ``ColoringService`` on the
+engine; --baseline colors on every rank's own device alike, and its
+--reduce-passes run on the engine.
 --baseline colors with the Bozdağ/Zoltan-style batched-boundary baseline
 (``repro_torch.core.baseline``; the reference backend and ``all_gather``).
 
@@ -131,16 +132,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_stream(args) -> None:
-    """Mixed-topology replay through the continuous-batching frontend."""
+def run_stream(args, say=print) -> None:
+    """Mixed-topology replay through the continuous-batching frontend,
+    printed by ``say``."""
     specs = [s for s in args.stream.split("|") if s]
     graphs = [make_graph(s) for s in specs]
     pgs = []
     for g, spec in zip(graphs, specs):
         pg = make_partition(g, args)
         pgs.append(pg)
-        print(f"[color] topology {spec}: n={g.n} m={g.num_edges} "
-              f"sig={pg.signature[:12]}")
+        say(f"[color] topology {spec}: n={g.n} m={g.num_edges} "
+            f"sig={pg.signature[:12]}")
     fe = ColoringFrontend(
         problem=args.problem, recolor_degrees=not args.no_recolor_degrees,
         backend=args.backend, exchange=args.exchange, engine=args.engine,
@@ -164,16 +166,16 @@ def run_stream(args) -> None:
         if (cold.colors != warm.colors).any():
             raise SystemExit(f"warm replay diverged for {g.name}")
     s = fe.stats
-    print(f"[color] stream topologies={len(pgs)} requests={args.requests} "
-          f"req/s cold={args.requests / cold_s:.1f} "
-          f"warm={args.requests / warm_s:.1f} "
-          f"(compile {s.cold_ms:.0f}ms over {s.cold_runs} programs; "
-          f"warm {s.warm_ms_mean:.2f}ms/request; refills={s.refills})")
+    say(f"[color] stream topologies={len(pgs)} requests={args.requests} "
+        f"req/s cold={args.requests / cold_s:.1f} "
+        f"warm={args.requests / warm_s:.1f} "
+        f"(compile {s.cold_ms:.0f}ms over {s.cold_runs} programs; "
+        f"warm {s.warm_ms_mean:.2f}ms/request; refills={s.refills})")
     # Only topologies the stream actually reached (requests may be fewer).
     for spec, pg in zip(specs[:args.requests], pgs):
         res = first_for_pg[id(pg)]
-        print(f"[color]   {spec}: colors={res.n_colors} rounds={res.rounds} "
-              f"comm_total={res.comm_bytes_total}B")
+        say(f"[color]   {spec}: colors={res.n_colors} rounds={res.rounds} "
+            f"comm_total={res.comm_bytes_total}B")
 
 
 def start_group(args) -> int:
@@ -183,11 +185,6 @@ def start_group(args) -> int:
         raise SystemExit(
             "--engine shard_map runs one process per part: start it with "
             f"torchrun --nproc-per-node={args.parts} -m repro_torch.launch.color ...")
-    if args.stream or args.repeat > 1 or args.baseline:
-        raise SystemExit(
-            "--stream, --repeat and --baseline do not run on --engine shard_map "
-            "(the slot surface is not ported to it yet, ROADMAP.md queue 1; the "
-            "baseline runs on one device)")
     if args.device == "cpu":
         dist.init_process_group("gloo")
     else:
@@ -197,7 +194,8 @@ def start_group(args) -> int:
     return dist.get_rank()
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
+    """The CLI's arguments (``main`` parses with it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph")
     ap.add_argument("--stream", metavar="SPEC|SPEC|...",
@@ -229,6 +227,11 @@ def main(argv=None) -> None:
                          "reduction passes (repro_torch.core.reduce)")
     ap.add_argument("--reduce-order", default="reverse", choices=list_orders(),
                     help="class-rebuild order used by --reduce-passes")
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = parser()
     args = ap.parse_args(argv)
 
     rank = start_group(args) if args.engine == "shard_map" else 0
@@ -242,7 +245,7 @@ def main(argv=None) -> None:
 def run_one(ap, args, say) -> None:
     """One coloring (or a stream), printed by ``say``."""
     if args.stream:
-        run_stream(args)
+        run_stream(args, say)
         return
     if not args.graph:
         ap.error("one of --graph or --stream is required")

@@ -57,9 +57,7 @@ execution lands in ``warm_ms_total`` / ``warm_requests`` — including the
 requests that happened to ride the first batch of a bucket.
 
 The counterpart of ``repro/serve/coloring.py``, with the same names,
-behavior and messages, adapted to eager PyTorch on the ``simulate``
-engine (the slot surface of the ``shard_map`` engine is not ported yet:
-a frontend or service on it raises ``NotImplementedError``):
+behavior and messages, adapted to eager PyTorch:
 
 * **Programs are closures.**  ``_SlotGroup._program`` builds a bucket's
   step or refill closure from the plan's slot surface where ``repro``
@@ -78,6 +76,19 @@ a frontend or service on it raises ``NotImplementedError``):
   slot engine.
 * **``device=``** places every plan (``None`` means ``"cuda"`` and raises
   without a card, as ``resolve_device`` does).
+* **``shard_map`` runs one process per part.**  Every rank makes the same
+  calls with the same requests, as it must for ``plan.run``, and each
+  keeps its own frontend; the slot steps run the exchanges' collectives,
+  so every scheduling decision must come out the same on every rank.
+  It does: the heap order, shedding, quotas and refills depend only on
+  the calls, and a deadline is taken against rank 0's admission clock
+  (``ColoringPlan.group_clock_ms``, one small broadcast per admission).
+  At each refill the ranks agree on every refilled slot's ``(slot,
+  ticket, scheduling key)`` (``ColoringPlan.check_ranks_agree``, one
+  all-gather), so callers that submitted in a different order or with
+  another priority or deadline raise ``ValueError`` on every rank
+  instead of mixing two requests' rows.  The masks are not hashed: like
+  ``plan.run``, the engine trusts every rank to pass the same inputs.
 """
 from __future__ import annotations
 
@@ -368,12 +379,12 @@ class _SlotGroup:
         return self.pending[0][0] if self.pending else None
 
     def pop(self):
+        """The most urgent live entry ``(key, seq, ticket, req)``, or None."""
         self._prune()
         if not self.pending:
             return None
-        _, _, ticket, req = heapq.heappop(self.pending)
         self._live_pending -= 1
-        return ticket, req
+        return heapq.heappop(self.pending)
 
     def note_shed(self) -> None:
         """A queued ticket was tombstoned by the shed policy."""
@@ -451,13 +462,21 @@ class _SlotGroup:
         if self._live_pending == 0:
             self._advanced = True
             return
+        picks = []
         for i in range(self.bucket):
             if self.slots[i] is not None:
                 continue
             nxt = self.pop()
             if nxt is None:
                 break
-            ticket, req = nxt
+            picks.append((i, *nxt))
+        if picks:
+            # An internal ticket's number is process-wide and may differ
+            # between ranks; the heap's seq is the frontend's own.
+            self.plan.check_ranks_agree(repr([
+                (i, t.id if isinstance(t, Ticket) else None, seq, key)
+                for i, key, seq, t, _ in picks]).encode(), "refill")
+        for i, _, _, ticket, req in picks:
             self.fe._note_running(ticket)
             c0, g0, a0, _ = self.plan.request_inputs(**req.plan_inputs())
             args = (np.int32(i),) + self.plan.slot_args(c0, g0, a0)
@@ -563,10 +582,6 @@ class ColoringFrontend:
         device=None,
     ):
         del compilation_cache
-        if engine == "shard_map":
-            raise NotImplementedError(
-                "ColoringFrontend / ColoringService run on the slot surface, which "
-                "is not ported to engine 'shard_map' yet (ROADMAP.md, queue 1)")
         if isinstance(cache, PlanCache):
             self.cache = cache
         elif cache is False:
@@ -633,7 +648,6 @@ class ColoringFrontend:
 
     def _group_for(self, pg: PartitionedGraph) -> _SlotGroup:
         plan = get_plan(pg, cache=self.cache, **self._cfg)
-        plan._slots_ported()            # "auto" may resolve to shard_map
         group = self._groups.get(plan.key)
         if group is None or group.plan is not plan:
             if group is not None and group.busy():
@@ -676,7 +690,8 @@ class ColoringFrontend:
                 raise AdmissionError(
                     f"tenant {req.tenant!r} has {live} requests in flight "
                     f"(quota {self.tenant_quota})")
-        key = _sched_key(req, time.monotonic() * 1e3)
+        # On shard_map rank 0's clock, so the key is the same on every rank.
+        key = _sched_key(req, group.plan.group_clock_ms())
         ticket = Ticket(self, next(self._seq), req)
         if self.max_pending is not None and self._queued >= self.max_pending:
             if self.admission == "reject":
@@ -901,7 +916,6 @@ class ColoringService:
         self._signature = self._frontend.register(pg)
         self.plan = get_plan(pg, cache=self._frontend.cache,
                              **self._frontend._cfg)
-        self.plan._slots_ported()
         self.engine = self.plan.key.engine
         self.stats = self._frontend.stats
         self.reduce_passes = reduce_passes

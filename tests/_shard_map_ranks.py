@@ -10,6 +10,7 @@ parent, which colors the same cases on the ``simulate`` engine.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import queue
@@ -101,12 +102,43 @@ def _raises(exc, fn):
     return None
 
 
+SLOT_MASKS = (None, 2, 3)       # run_slots' requests: all, or every k-th gid
+
+
+def slot_mask(pg, k):
+    return None if k is None else np.arange(pg.n_global) % k == 0
+
+
+def run_slots(plan, ks):
+    """``plan``'s slot surface by hand: the requests ``slot_mask(k)`` for
+    ``ks`` through a carry of two slots, refilling a slot as soon as it
+    finishes; the results in request order."""
+    ex = plan.slot_ex_init()
+    carry, step, refill = plan.slot_carry(2, ex), plan.slot_step(), plan.slot_refill(ex)
+    queue, slots, got = list(enumerate(ks)), [None, None], {}
+    while queue or any(s is not None for s in slots):
+        for i in range(2):
+            if slots[i] is None and queue:
+                slots[i], k = queue.pop(0)
+                c0, g0, a0, _ = plan.request_inputs(color_mask=slot_mask(plan, k))
+                carry = refill(carry, i, *plan.slot_args(c0, g0, a0))
+        carry, done = step(carry)
+        for i in range(2):
+            if slots[i] is not None and done[i]:
+                got[slots[i]] = plan._result(carry["colors"][i], int(carry["rounds"][i]),
+                                             carry["conf"][i], carry["total"][i],
+                                             carry["bytes"][i])
+                slots[i] = None
+    return [got[j] for j in range(len(ks))]
+
+
 def job_matrix(rank, world):
     """The whole matrix on 4 ranks, warm requests on d1, the pd2 rmat case,
-    the route plans and the error paths of a group."""
+    the route plans, the slot surface and the service, and the error paths
+    of a group."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.plan import ColoringPlan, build_plan, plan_key_for
-    from repro_torch.serve.coloring import ColoringService
+    from repro_torch.serve.coloring import ColoringRequest, ColoringService
 
     pg = hex_pg(world)
     out = {"cold": {}, "warm": {}}
@@ -141,14 +173,26 @@ def job_matrix(rank, world):
             pg, engine="shard_map", device="cuda"))
     finally:
         torch.cuda.is_available, torch.cuda.current_device = saved
-    errors["slots"] = [
-        _raises(NotImplementedError, fn) for fn in (
-            sparse.slot_ex_init, lambda: sparse.slot_carry(1, ()), sparse.slot_step,
-            lambda: sparse.slot_refill(()), lambda: sparse.slot_args(None, None, None))]
-    errors["service"] = _raises(NotImplementedError, lambda: ColoringService(
-        pg, engine="shard_map", device="cpu"))
-    errors["service_auto"] = _raises(NotImplementedError, lambda: ColoringService(
-        pg, device="cpu"))
+    # The slot surface by hand: three requests through two slots, the third
+    # a refill, beside their solo runs.
+    out["slots"] = (run_slots(sparse, SLOT_MASKS), [
+        sparse.run(color_mask=slot_mask(pg, k)) for k in SLOT_MASKS])
+    reqs = [ColoringRequest(color_mask=m, colors0=c) for m, c in (
+        warm_inputs(pg, out["cold"]["d1/cuda_fused/all_gather"].colors, seed)
+        for seed in range(3))]
+    svc = ColoringService(pg, backend="cuda_fused", engine="shard_map", device="cpu",
+                          max_batch=2)
+    out["service"] = (svc.run_batch(reqs), [svc.plan.run(**r.plan_inputs())
+                                            for r in reqs], svc.stats.refills)
+    # Callers that disagree on the requests' priority, or on their order,
+    # raise on every rank at the first refill instead of mixing rows.
+    skewed = [dataclasses.replace(r, priority=rank % 2 if i == 0 else 0)
+              for i, r in enumerate(reqs)]
+    errors["service"] = _raises(ValueError, lambda: ColoringService(
+        pg, backend="cuda_fused", engine="shard_map", device="cpu").run_batch(skewed))
+    urgent = [dataclasses.replace(reqs[0], priority=1), reqs[1]]
+    errors["service_auto"] = _raises(ValueError, lambda: ColoringService(
+        pg, device="cpu").run_batch(urgent[::1 if rank % 2 else -1]))
     cpu = torch.device("cpu")
     errors["agree"] = _raises(ValueError, lambda: plan_mod._ranks_agree(
         b"one route plan", "route plan", cpu))
@@ -158,11 +202,13 @@ def job_matrix(rank, world):
 
 
 def job_eight(rank, world):
-    """``hier_delta`` with nodes of 2 and 4 parts in both transports, and
-    two reduction passes on d1 and d2, on 8 ranks."""
+    """``hier_delta`` with nodes of 2 and 4 parts in both transports, two
+    reduction passes on d1 and d2, and a frontend stream with a reduction
+    pass, on 8 ranks."""
     from repro_torch.core.exchange import HierDeltaExchange
     from repro_torch.core.plan import PlanCache, get_plan
     from repro_torch.core.reduce import reduce_colors
+    from repro_torch.serve.coloring import ColoringFrontend
 
     pg = hex_pg(world)
     out = {"hier": {}, "reduce": {}}
@@ -176,10 +222,117 @@ def job_eight(rank, world):
                         device="cpu", cache=cache)
         res = plan.run()
         out["reduce"][problem] = (res, reduce_colors(plan, res, passes=2, cache=cache))
+    # repro's frontend stream with one reduction pass, on 8 ranks.
+    fe = ColoringFrontend(engine="shard_map", device="cpu", cache=PlanCache(),
+                          reduce_passes=1)
+    out["stream_reduce"] = fe.run_stream(requests(reduce_pairs(pg)))
     return out
 
 
-JOBS = {"matrix": job_matrix, "eight": job_eight}
+def stream_pairs():
+    """``repro``'s frontend scenario on 4 parts: ``hex_mesh(12, 6, 6)`` and
+    an edge-balanced ``rmat(8, 6)``, both with a second layer, 12 requests
+    alternating between them, every third round of two masked to the even
+    gids.  ``(pg, color_mask)`` pairs."""
+    pgs = (partition_graph(hex_mesh(12, 6, 6), 4, second_layer=True),
+           partition_graph(rmat(8, 6, seed=5), 4, strategy="edge_balanced",
+                           second_layer=True))
+    return [(pg, None if i % 3 != 2 else np.arange(pg.n_global) % 2 == 0)
+            for i in range(6) for pg in pgs]
+
+
+def reduce_pairs(pg8):
+    """``repro``'s reduction stream on 8 parts: ``pg8`` and an edge-balanced
+    ``rmat(8, 6)``, each with and without an even-gid mask, twice."""
+    pgs = (pg8, partition_graph(rmat(8, 6, seed=5), 8, strategy="edge_balanced",
+                                second_layer=True))
+    return [(pg, m) for _ in range(2) for pg in pgs
+            for m in (None, np.arange(pg.n_global) % 2 == 0)]
+
+
+def requests(pairs, **kw):
+    from repro_torch.serve.coloring import ColoringRequest
+
+    return [(pg, ColoringRequest(color_mask=m, **kw)) for pg, m in pairs]
+
+
+SKEW_DEADLINES = (200.0, 20.0, 100.0, 5.0, None)    # ms after admission
+SKEW_S = 0.03           # rank r sleeps r * SKEW_S before every other submit
+CLI_RUNS = {            # the CLI's service modes on the group (--device cpu)
+    "repeat": ["--graph", "hex:12,6,6", "--backend", "cuda_fused", "--repeat", "3"],
+    "stream": ["--stream", "hex:6,4,4|grid:12,12", "--requests", "6",
+               "--backend", "cuda_fused", "--exchange", "sparse_delta"],
+    "baseline": ["--graph", "rmat:8,6", "--baseline", "--reduce-passes", "1"],
+}
+
+
+def cli_lines(name, engine):
+    """The lines ``run_one`` prints for ``CLI_RUNS[name]`` on 4 parts."""
+    from repro_torch.launch import color as cli
+
+    ap = cli.parser()
+    args = ap.parse_args(CLI_RUNS[name] + ["--parts", "4", "--device", "cpu",
+                                           "--engine", engine])
+    lines = []
+    cli.run_one(ap, args, lines.append)
+    return lines
+
+
+def job_slots(rank, world):
+    """The service on the engine (4 ranks): ``repro``'s frontend stream
+    through refills, a stream with deadlines whose ranks admit at skewed
+    times (with rank 0's clock, then with each rank's own), the service
+    under ``engine="auto"`` and the CLI's service modes."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.plan import PlanCache, get_plan
+    from repro_torch.serve.coloring import ColoringFrontend, ColoringService
+
+    out, cache = {}, PlanCache()
+    pairs = requests(stream_pairs())
+    fe = ColoringFrontend(engine="shard_map", device="cpu", cache=cache, max_batch=2)
+    out["stream"] = fe.run_stream(pairs)
+    out["stream_solo"] = [get_plan(pg, engine="shard_map", device="cpu", cache=cache)
+                          .run(**r.plan_inputs()) for pg, r in pairs]
+    s = fe.stats
+    out["stream_stats"] = (s.refills, s.batches, s.requests, s.warm_requests,
+                           sorted({g.plan.key.engine for g in fe._groups.values()}))
+
+    pg = pairs[0][0]
+
+    def skewed():
+        fe = ColoringFrontend(backend="cuda_fused", exchange="delta", engine="shard_map",
+                              device="cpu", cache=cache, max_batch=2)
+        tickets = []
+        for i, deadline in enumerate(SKEW_DEADLINES):
+            if i % 2:
+                time.sleep(rank * SKEW_S)
+            tickets.append(fe.submit(pg, deadline_ms=deadline,
+                                     color_mask=slot_mask(pg, i + 2)))
+        got = fe.drain(tickets)
+        return [got[t] for t in tickets]
+
+    out["skew"] = skewed()
+    out["skew_solo"] = [get_plan(pg, backend="cuda_fused", exchange="delta",
+                                 engine="shard_map", device="cpu", cache=cache)
+                        .run(color_mask=slot_mask(pg, i + 2))
+                        for i in range(len(SKEW_DEADLINES))]
+    shared = plan_mod.ColoringPlan.group_clock_ms
+    plan_mod.ColoringPlan.group_clock_ms = lambda self: time.monotonic() * 1e3
+    try:
+        out["own_clocks"] = _raises(ValueError, skewed)
+    finally:
+        plan_mod.ColoringPlan.group_clock_ms = shared
+
+    svc = ColoringService(pg, backend="cuda_fused", exchange="sparse_delta",
+                          device="cpu", cache=cache, max_batch=4)
+    reqs = [r for _, r in requests((pg, slot_mask(pg, k)) for k in range(2, 7))]
+    out["auto"] = (svc.engine, svc.run_batch(reqs),
+                   [svc.plan.run(**r.plan_inputs()) for r in reqs], svc.stats.refills)
+    out["cli"] = {name: cli_lines(name, "shard_map") for name in CLI_RUNS}
+    return out
+
+
+JOBS = {"matrix": job_matrix, "eight": job_eight, "slots": job_slots}
 
 
 def rank_main(rank, world, rendezvous, job, results):

@@ -4,8 +4,10 @@ processes, held against the ``simulate`` engine and against ``repro``.
 One group of 4 spawned ranks runs the whole matrix on ``hex_mesh(24, 8,
 8)`` with a second ghost layer (every problem × backend × exchange, the
 sparse two in both transports, warm requests on d1), the pd2 case on an
-edge-balanced ``rmat`` and the error paths of a group; one group of 8
-runs ``hier_delta`` with nodes of 2 and 4 parts and two reduction passes.
+edge-balanced ``rmat``, the slot surface and the service, and the error
+paths of a group; one group of 8 runs ``hier_delta`` with nodes of 2 and
+4 parts, two reduction passes and a frontend stream with a reduction
+pass.  ``test_torch_shard_map_slots.py`` holds the service's own group.
 Every rank must return the same result, equal in every field to the
 port's ``simulate`` engine on the same partition; a few are also held
 against ``repro``'s ``simulate`` engine (its ``shard_map`` engine fails
@@ -43,6 +45,9 @@ def assert_same_result(got, want):
         assert getattr(got, f) == getattr(want, f), f
     for f in ("comm_bytes_by_round", "comm_bytes_by_level"):
         a, b = getattr(got, f), getattr(want, f)
+        if a is None or b is None:          # a reduced result keeps none
+            assert a is b, f
+            continue
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b)
 
@@ -167,8 +172,8 @@ def test_group_plans(matrix, pg4):
 ERRORS = {
     "world": (ValueError, "4 ranks and the partition 3 parts"),
     "backend": (ValueError, "gloo process group cannot run a plan on cuda:0"),
-    "service": (NotImplementedError, "shard_map"),
-    "service_auto": (NotImplementedError, "shard_map"),
+    "service": (ValueError, "different refills"),
+    "service_auto": (ValueError, "different refills"),
     "disagree": (ValueError, "different route plans"),
 }
 
@@ -176,18 +181,42 @@ ERRORS = {
 @pytest.mark.parametrize("name", sorted(ERRORS))
 def test_group_error_paths(matrix, name):
     """A world size other than ``n_parts``, a backend that does not fit the
-    device, the service on the engine and ranks that derived different
-    route plans all raise on every rank; nothing falls back."""
+    device, services whose callers gave a request another priority on some
+    ranks (``service``) or submitted in another order (``service_auto``)
+    and ranks that derived different route plans all raise on every rank;
+    nothing falls back."""
     _, match = ERRORS[name]
     for out in matrix:
         assert out["errors"][name] is not None and match in out["errors"][name], name
 
 
-def test_slot_surface_raises_and_agreement_passes(matrix):
+def test_slot_surface_raises_and_agreement_passes(matrix, pg4):
+    """The slot surface by hand on the engine (three requests through two
+    slots, one refill): each result equal on every rank to its solo
+    ``plan.run`` there and to ``simulate``; ranks that agree pass."""
+    plan = build_plan(pg4, exchange="sparse_delta", engine="simulate", device="cpu")
     for out in matrix:
-        assert len(out["errors"]["slots"]) == 5
-        assert all(m is not None and "ROADMAP" in m for m in out["errors"]["slots"])
+        got, solo = out["slots"]
+        assert len(got) == len(ranks.SLOT_MASKS)
+        for g, s, k in zip(got, solo, ranks.SLOT_MASKS, strict=True):
+            assert_same_result(g, s)
+            assert_same_result(g, plan.run(color_mask=ranks.slot_mask(pg4, k)))
         assert out["errors"]["agree"] is None
+    assert_same_result(ranks.run_slots(plan, ranks.SLOT_MASKS)[2], got[2])
+
+
+def test_service_on_the_engine_equals_solo(matrix, pg4):
+    """``ColoringService.run_batch`` on the engine (three warm requests,
+    two slots): every rank's results equal its solo runs and ``simulate``."""
+    plan = build_plan(pg4, backend="cuda_fused", engine="simulate", device="cpu")
+    cold = plan.run()
+    for out in matrix:
+        got, solo, refills = out["service"]
+        assert refills > 0
+        for seed, (g, s) in enumerate(zip(got, solo, strict=True)):
+            mask, c0 = ranks.warm_inputs(pg4, cold.colors, seed)
+            assert_same_result(g, s)
+            assert_same_result(g, plan.run(color_mask=mask, colors0=c0))
 
 
 @pytest.mark.parametrize("case", HIER, ids=[f"node{n}/{p}/ragged={r}" for n, p, r in HIER])
@@ -231,6 +260,23 @@ def test_reduce_colors_on_eight_ranks(eight, pg8, problem):
     assert red.comm_bytes_by_pass == sim_red.comm_bytes_by_pass
 
 
+def test_frontend_stream_with_reduction_on_eight_ranks(eight, pg8):
+    """``repro``'s ``test_frontend_stream_shard_map_with_reduction``: a
+    frontend stream over two topologies with one reduction pass, its
+    supersteps through the engine's slot steps; every rank's result equal
+    to a solo ``simulate`` run and reduction."""
+    pairs = ranks.reduce_pairs(pg8)
+    results = [assert_ranks_agree([out["stream_reduce"][i] for out in eight])
+               for i in range(len(pairs))]
+    cache = PlanCache()
+    for (pg, mask), got in zip(pairs, results, strict=True):
+        plan = get_plan(pg, engine="simulate", device="cpu", cache=cache)
+        base = plan.run(color_mask=mask)
+        red = reduce_colors(plan, base, passes=1, cache=cache, color_mask=mask)
+        assert_same_result(got, red.merged_result(base))
+    assert is_proper_d1(j_gen.hex_mesh(24, 8, 8), results[0].colors)
+
+
 def test_group_of_one_rank(tmp_path):
     """A group of one rank in this process, as on a one-card host: every
     exchange colors the one part as ``simulate`` does, and ``"auto"``
@@ -252,16 +298,18 @@ def test_group_of_one_rank(tmp_path):
 
 
 def test_no_group_raises_and_cli_asks_for_torchrun(pg4, monkeypatch):
-    """Without a process group ``shard_map`` raises naming the group (no
-    fallback), the frontend refuses the engine, and the CLI asks for
-    torchrun."""
+    """Without a process group ``shard_map`` raises naming torchrun (no
+    fallback), at a plan's build and at a frontend's first submit, and the
+    CLI asks for torchrun, in its service modes too."""
     assert not dist.is_initialized()
     with pytest.raises(ValueError, match="torchrun"):
         build_plan(pg4, engine="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        ColoringFrontend(engine="shard_map", device="cpu")
+    fe = ColoringFrontend(engine="shard_map", device="cpu", cache=False)
+    with pytest.raises(ValueError, match="torchrun"):
+        fe.submit(pg4)
     for var in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
-    with pytest.raises(SystemExit, match="torchrun --nproc-per-node=4"):
-        t_cli.main(["--graph", "hex:24,8,8", "--parts", "4", "--engine", "shard_map",
-                    "--device", "cpu"])
+    for mode in (["--graph", "hex:24,8,8"], ["--stream", "hex:6,4,4"],
+                 ["--graph", "hex:24,8,8", "--repeat", "3"]):
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node=4"):
+            t_cli.main(mode + ["--parts", "4", "--engine", "shard_map", "--device", "cpu"])
