@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--graph hex:256,256,256] [--parts 8] [--seed 0]
                           [--baseline-csrc DIR] [--shard-map-only]
+                          [--families-only]
 
 Run from the root of a checkout.  It exits non-zero on any failure and
 prints no result line when ``torch.cuda.is_available()`` is false.  In
@@ -134,6 +135,21 @@ order it:
    it does a second shape at head width 128 (Qwen3-32B's attention over
    4,096 random bf16 tokens); then checks that a float32 copy of the
    model generates exactly the teacher-forced argmax of ``forward``;
+   then ``[serve] families``: every other family of the zoo at full width
+   (random bf16 weights from ``--seed``): Qwen3-30B-A3B (MoE) and Grok-1
+   (MoE, 2 of its 64 layers) through ``ServeEngine`` on the batch of
+   four, Mamba-2 780M (SSM) and Hymba 1.5B (hybrid) on it and on the
+   16,384-token request, Llama-3.2-Vision-11B through ``prefill`` with a
+   random image and 32 ``decode_step`` calls on 4 prompts of 512 tokens,
+   HuBERT-XLarge through ``forward`` over 4 x 1,500 random frames; each
+   with its parameters, init, prefill and decode times beside a decode
+   step's bytes bound, tokens/s, host syncs a step and peak memory, then a
+   float32 copy (the same draws; Qwen3-MoE cut to 8 layers, dropless)
+   whose decode logits are held against ``forward`` over the
+   teacher-forced rows (tokens equal to its argmax but for printed ties;
+   the VLM's logits within 1e-3), prefill's last logits within 1e-4 of
+   ``forward``'s for the 16,384 request and HuBERT's frames;
+   ``--families-only`` runs this phase alone;
 6. prints one ``{"kernels": [...]}`` line with each kernel's launches
    summed over the paths, the ``nvidia-smi`` line, and
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -1240,36 +1256,40 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
-def serve_request(label, eng, prompts, n_new):
+def serve_request(label, eng, prompts, n_new, *, profile=True):
     """Serve ``prompts`` on ``eng`` with ``n_new`` tokens each: prefill and
-    decode times, tokens per second, host syncs per decode step, peak
-    memory, and one decode step under the profiler.  Returns the tokens."""
+    decode times (a decode step beside its bytes bound), tokens per second,
+    host syncs per decode step, peak memory, the card; with ``profile``, a
+    warm-up first and one decode step under the profiler.  Returns the
+    tokens."""
     import torch
 
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.engine import pad_prompts
 
-    eng.generate(prompts, 1)                                   # warm-up
-    _, prefill_s = wall_s(lambda: eng.generate(prompts, 0))
+    if profile:
+        eng.generate(prompts, 1)                               # warm-up
+    (_, syncs0), prefill_s = wall_s(lambda: count_syncs(lambda: eng.generate(prompts, 0)))
     torch.cuda.reset_peak_memory_stats()
-    outs, total_s = wall_s(lambda: eng.generate(prompts, n_new))
+    (outs, syncs), total_s = wall_s(lambda: count_syncs(lambda: eng.generate(prompts, n_new)))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    _, syncs0 = count_syncs(lambda: eng.generate(prompts, 0))
-    _, syncs = count_syncs(lambda: eng.generate(prompts, n_new))
     decode_s = total_s - prefill_s
     n_tok = len(prompts) * n_new
+    bound_ms, nbytes = decode_bound(eng.params, eng.cfg, eng.batch, eng.max_len)
     log(f"[serve] {label}: prefill {prefill_s:.4f} s, decode {decode_s / n_new * 1e3:.3f} ms "
-        f"per step ({n_new} steps), {n_tok / total_s:.1f} tokens/s end to end, "
-        f"{n_tok / decode_s:.1f} tokens/s decoding; host syncs per decode step "
-        f"{(syncs - syncs0) / n_new:.2f} (prefill only: {syncs0}); peak "
-        f"{peak:.2f} GiB allocated")
-    toks = torch.from_numpy(pad_prompts(prompts, eng.batch)).to(eng.device)
-    with torch.inference_mode():
-        logits, cache = prefill(eng.params, eng.cfg, toks, max_len=toks.shape[1] + 2)
-        cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        decode_step(eng.params, eng.cfg, cur, cache)
-        profile_request(f"serve {label} decode step",
-                        lambda: decode_step(eng.params, eng.cfg, cur, cache))
+        f"per step ({n_new} steps; bound {bound_ms:.3f} ms, {nbytes} B a step over 3.35 "
+        f"TB/s), {n_tok / total_s:.1f} tokens/s end to end, {n_tok / decode_s:.1f} tokens/s "
+        f"decoding; host syncs per decode step {(syncs - syncs0) / n_new:.2f} (prefill "
+        f"only: {syncs0}); peak {peak:.2f} GiB allocated; first tokens "
+        f"{[o[:4] for o in outs]}; {card_identity()}")
+    if profile:
+        toks = torch.from_numpy(pad_prompts(prompts, eng.batch)).to(eng.device)
+        with torch.inference_mode():
+            logits, cache = prefill(eng.params, eng.cfg, toks, max_len=toks.shape[1] + 2)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            decode_step(eng.params, eng.cfg, cur, cache)
+            profile_request(f"serve {label} decode step",
+                            lambda: decode_step(eng.params, eng.cfg, cur, cache))
     return outs
 
 
@@ -1446,8 +1466,7 @@ def serve_phase(device, seed, cfg, ledger, reps) -> dict:
     for label, prompts, n_new in requests:
         eng = ServeEngine(cfg, params, batch=len(prompts),
                           max_len=max(map(len, prompts)) + n_new, device=device)
-        outs = serve_request(label, eng, prompts, n_new)
-        log(f"[serve] {label}: first tokens {[o[:4] for o in outs]}")
+        serve_request(label, eng, prompts, n_new)
         with torch.inference_mode():
             toks = torch.from_numpy(pad_prompts(prompts, len(prompts))).to(device)
             qkv[label] = layer0_qkv(params, cfg, toks)
@@ -1496,6 +1515,252 @@ def serve_phase(device, seed, cfg, ledger, reps) -> dict:
         f"forward's argmax; prefill's last logits within {err:.3g} of forward's "
         f"(tokens {outs[0]})")
     return entry
+
+
+# The [serve] families phase: every other family of the zoo, random bf16
+# weights from --seed.  (arch, layers served in bf16, layers of the float32
+# check copy); None keeps the published depth.  Grok-1's 64 layers would be
+# 633 GB in bf16; Qwen3-MoE's float32 copy at 48 layers, 122 GB.
+FAMILY_RUNS = (
+    ("qwen3_moe_30b_a3b", None, 8),
+    ("grok_1_314b", 2, 2),
+    ("mamba2_780m", None, None),
+    ("hymba_1_5b", None, None),
+    ("llama_3_2_vision_11b", None, None),
+    ("hubert_xlarge", None, None),
+)
+SSM_FAMILIES = ("ssm", "hybrid")        # served the long request too
+VLM_PROMPT = (4, 512)                   # the VLM: 4 prompts of 512 tokens, 32 new
+AUDIO_FRAMES = (4, 1500)                # HuBERT: 4 x 30 s of 50 frames/s
+FAMILY_TOL = 1e-4                       # prefill's last logits against forward's
+VLM_TOL = 1e-3                          # float32 decode logits against forward's
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def decode_bound(params, cfg, batch, max_len) -> tuple[float, int]:
+    """(ms, bytes) of one decode step at 3.35 TB/s: every weight read once
+    (MoE decode is dropless, so every expert; the embedding only as the tied
+    head, a step gathers ``batch`` rows of it otherwise) and every cache
+    tensor read once."""
+    from repro_torch.models import init_cache
+
+    nbytes = tree_bytes(params) + tree_bytes(init_cache(cfg, batch, max_len, device="meta"))
+    if not cfg.tie_embeddings:
+        nbytes -= params["embed"].numel() * params["embed"].element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def greedy(params, cfg, toks, n_new, *, img=None, forced=None):
+    """prefill, then ``n_new`` decode steps, as ``ServeEngine.generate`` runs
+    them (one bulk token read a step), the next token the argmax or, with
+    ``forced`` (B, n_new), forced.  Returns (tokens (B, n_new) as numpy,
+    the logits that chose them (B, n_new, V), float32)."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        logits, cache = prefill(params, cfg, toks, img=img, max_len=toks.shape[1] + n_new)
+        out, steps = [], []
+        for t in range(n_new):
+            steps.append(logits[:, -1].float())
+            cur = (torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+                   if forced is None else forced[:, t:t + 1])
+            out.append(cur[:, 0].cpu().numpy())
+            logits, cache = decode_step(params, cfg, cur, cache)
+    return np.stack(out, axis=1), torch.stack(steps, dim=1)
+
+
+def family_line(cfg, depth, n_params, nbytes, init_s, ident) -> str:
+    cut = (f"{cfg.n_layers} of {depth} layers: the published depth cut" if cfg.n_layers != depth
+           else f"all {depth} layers")
+    return (f"[serve] families {cfg.name} ({cfg.family}, {cfg.dtype}, {cut}): {n_params} "
+            f"random parameters, {nbytes / 1e9:.2f} GB, init {init_s:.2f} s; {ident}")
+
+
+def check_decode(label, params, cfg, toks, outs, served, *, img=None, tol=None) -> float:
+    """Hold decoding against ``forward`` over each teacher-forced row
+    (prompt, pads, generated tokens): the measured max |logit| error between
+    the logits that chose each token (``served``) and ``forward``'s at its
+    position, at most ``tol`` where given; every token ``forward``'s argmax
+    unless ``forward``'s top two logits there lie within twice that error
+    (each may move by it), a tie that is printed.  Returns the error."""
+    import torch
+
+    from repro_torch.models import forward
+
+    lp, n_new = toks.shape[1], outs.shape[1]
+    want = []
+    with torch.inference_mode():
+        for i in range(len(outs)):
+            row = torch.from_numpy(np.concatenate([toks[i], outs[i]]).astype(np.int32))
+            logits, _ = forward(params, cfg, row[None].to(served.device),
+                                img=None if img is None else img[i:i + 1])
+            want.append(logits[0, lp - 1:lp - 1 + n_new].float())
+    want = torch.stack(want)
+    err = float((served - want).abs().max())
+    if tol is not None and not err <= tol:
+        raise AssertionError(f"[serve] families float32 {label}: decode logits {err:.3g} "
+                             f"from forward's, over {tol}")
+    top = torch.topk(want, 2, dim=-1)
+    ties = []
+    for i, t in zip(*np.nonzero(torch.argmax(want, dim=-1).cpu().numpy() != outs)):
+        gap = float(want[i, t, top.indices[i, t, 0]] - want[i, t, outs[i, t]])
+        if gap > 2 * err:
+            raise AssertionError(f"[serve] families float32 {label} row {i}: token {t} is "
+                                 f"{outs[i, t]}, forward's argmax {int(top.indices[i, t, 0])} "
+                                 f"by {gap:.3g}, over twice the error {err:.3g}")
+        ties.append((int(i), int(t), gap))
+    log(f"[serve] families float32 {label}: all {outs.size} tokens forward's teacher-forced "
+        f"argmax over the teacher-forced rows (prompt, pads, generated tokens)"
+        + (f" but {len(ties)} ties (row, token, top-two gap) {ties}" if ties else "")
+        + f"; decode logits within {err:.3g} of forward's"
+        + (f" (limit {tol})" if tol is not None else ""))
+    return err
+
+
+def family_tokens(cfg, rng, lengths):
+    return [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+
+
+def serve_family(arch, depth, check_depth, device, seed, ident) -> None:
+    """One family: bf16 at full width (depth cut where ``depth`` says),
+    served as a user would call it, then the float32 check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, prefill
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import pad_prompts
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth or full.n_layers)
+    rng = np.random.default_rng(seed)
+    torch.cuda.empty_cache()
+    params, init_s = wall_s(lambda: init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed)))
+    log(family_line(cfg, full.n_layers, sum(t.numel() for t in leaves(params)),
+                    tree_bytes(params), init_s, ident))
+
+    if cfg.frontend_dim:                          # the audio encoder: forward over frames
+        b, l = AUDIO_FRAMES
+        gen = torch.Generator(device=device).manual_seed(seed)
+        frames = torch.randn((b, l, cfg.frontend_dim), generator=gen, device=device)
+        with torch.inference_mode():
+            forward(params, cfg, None, frames=frames)          # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            logits, s = wall_s(lambda: forward(params, cfg, None, frames=frames)[0])
+        log(f"[serve] families {cfg.name} forward {b}x{l} frames: {s:.4f} s, "
+            f"{b * l / s:.1f} frames/s, {b * l / 50 / s:.1f} s of audio a second; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; {ident}")
+    elif cfg.n_cross_layers:                      # the VLM: prefill with the image, then decode
+        b, l = VLM_PROMPT
+        toks = np.stack(family_tokens(cfg, rng, [l] * b))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        img = torch.randn((b, cfg.vision_seq, cfg.d_model), generator=gen,
+                          device=device).to(params["embed"].dtype)
+        ttoks = torch.from_numpy(toks).to(device)
+        greedy(params, cfg, ttoks, 1, img=img)                  # warm-up
+        with torch.inference_mode():
+            _, prefill_s = wall_s(lambda: prefill(params, cfg, ttoks, img=img,
+                                                  max_len=l + SERVE_NEW))
+        torch.cuda.reset_peak_memory_stats()
+        ((outs, _), syncs), total_s = wall_s(lambda: count_syncs(
+            lambda: greedy(params, cfg, ttoks, SERVE_NEW, img=img)))
+        decode_s = total_s - prefill_s
+        bound_ms, nbytes = decode_bound(params, cfg, b, l + SERVE_NEW)
+        log(f"[serve] families {cfg.name} {b}x{l} with a {cfg.vision_seq}-token image: "
+            f"prefill {prefill_s:.4f} s, decode {decode_s / SERVE_NEW * 1e3:.3f} ms per step "
+            f"({SERVE_NEW} decode_step calls; bound {bound_ms:.3f} ms, {nbytes} B a step over "
+            f"3.35 TB/s), {b * SERVE_NEW / total_s:.1f} tokens/s end to end, "
+            f"{b * SERVE_NEW / decode_s:.1f} tokens/s decoding; host syncs per decode step "
+            f"{syncs / SERVE_NEW:.2f}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB allocated; first tokens {outs[:, :4].tolist()}; {ident}")
+    else:                                         # served through ServeEngine
+        requests = [(f"{len(SERVE_PROMPTS)}x{max(SERVE_PROMPTS)}",
+                     family_tokens(cfg, rng, SERVE_PROMPTS), SERVE_NEW)]
+        if cfg.family in SSM_FAMILIES:
+            requests.append((f"1x{LONG_PROMPT}", family_tokens(cfg, rng, [LONG_PROMPT]),
+                             LONG_NEW))
+        for i, (label, prompts, n_new) in enumerate(requests):
+            eng = ServeEngine(cfg, params, batch=len(prompts),
+                              max_len=max(map(len, prompts)) + n_new, device=device)
+            serve_request(f"families {cfg.name} {label}", eng, prompts, n_new,
+                          profile=i == 0)
+            del eng
+
+    # The float32 check: the same draws, not rounded, at check_depth.
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=check_depth or cfg.n_layers)
+    if cfg.is_moe:      # forward dropless, as decode is
+        cfg32 = dataclasses.replace(cfg32, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    params = init_params(cfg32, torch.Generator(device=device).manual_seed(seed))
+    what = (f"{cfg32.n_layers} of {full.n_layers} layers ({tree_bytes(params) / 1e9:.2f} GB"
+            + (f"; capacity_factor {cfg32.capacity_factor}" if cfg.is_moe else "") + ")")
+    t0 = time.perf_counter()
+    if cfg.frontend_dim:
+        with torch.inference_mode():
+            last, _ = prefill(params, cfg32, None, frames=frames)
+            logits, _ = forward(params, cfg32, None, frames=frames)
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"[serve] families float32 {cfg.name}: logits not finite")
+            err = check_close(f"families float32 {cfg.name}: prefill's last logits vs forward's",
+                              last[:, -1], logits[:, -1], FAMILY_TOL)
+        log(f"[serve] families float32 {cfg.name} {what}: all {logits.numel()} logits of "
+            f"forward finite; prefill's last logits within {err:.3g} of forward's last row "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return
+    if cfg.n_cross_layers:
+        img32 = img.float()
+        outs, served = greedy(params, cfg32, ttoks, SERVE_NEW, img=img32)
+        err = check_decode(f"{cfg.name} {what}", params, cfg32, toks, outs, served,
+                           img=img32, tol=VLM_TOL)
+        log(f"[serve] families float32 {cfg.name}: checked in {time.perf_counter() - t0:.1f} s")
+        return
+    label, prompts, n_new = requests[0]
+    eng = ServeEngine(cfg32, params, batch=len(prompts),
+                      max_len=max(map(len, prompts)) + n_new, device=device)
+    outs = np.array(eng.generate(prompts, n_new))
+    toks = pad_prompts(prompts, len(prompts))
+    # The logits that chose generate's tokens: its prefill and decode steps
+    # replayed with its tokens forced (the same computation, so the same
+    # tokens).
+    replay, served = greedy(params, cfg32, torch.from_numpy(toks).to(device), n_new,
+                            forced=torch.from_numpy(outs.astype(np.int32)).to(device))
+    if not (replay == outs).all():
+        raise AssertionError(f"[serve] families float32 {cfg.name}: a replay of generate's "
+                             "steps chose other tokens")
+    check_decode(f"{cfg.name} {label} {what}", params, cfg32, toks, outs, served)
+    for label, prompts, n_new in requests[1:]:
+        with torch.inference_mode():
+            t = torch.from_numpy(prompts[0][None]).to(device)
+            last, _ = prefill(params, cfg32, t, max_len=len(prompts[0]) + n_new)
+            logits, _ = forward(params, cfg32, t)
+            err = check_close(f"families float32 {cfg.name} {label}: prefill's last logits "
+                              "vs forward's", last[:, -1], logits[:, -1], FAMILY_TOL)
+        log(f"[serve] families float32 {cfg.name} {label}: prefill's last logits within "
+            f"{err:.3g} of forward's")
+    log(f"[serve] families float32 {cfg.name}: checked in {time.perf_counter() - t0:.1f} s")
+
+
+def families_phase(device, seed, ledger) -> None:
+    """``[serve] families``: every family of the zoo beside the dense one,
+    each through the entry points a user calls, then its float32 check.
+    Their path launches no kernel: ``repro``'s model code calls plain
+    attention, and its MoE and SSD layers are einsums."""
+    t0 = time.perf_counter()
+    ident = card_identity()
+    ledger.start()
+    for arch, depth, check_depth in FAMILY_RUNS:
+        serve_family(arch, depth, check_depth, device, seed, ident)
+    ledger.end("serve families (plain PyTorch, as in repro)", ())
+    log(f"[serve] families: the phase took {time.perf_counter() - t0:.1f} s; {ident}")
 
 
 PLAN_RUNS = 4                   # [plans]: runs of one cached plan
@@ -2416,6 +2681,9 @@ def main(argv=None) -> int:
                          "example the parent commit's src/repro_torch/csrc): its fused_round "
                          "detection / fixed-point split, d2_assign, collision and "
                          "pair_scatter are timed beside this one's")
+    ap.add_argument("--families-only", action="store_true",
+                    help="run the [serve] families phase alone (no kernel is built: the "
+                         "families' path launches none), with no kernels line")
     ap.add_argument("--shard-map-only", action="store_true",
                     help="build the kernels and run the [shard_map] phase alone (a "
                          "group of one rank per card, up to --parts), with no kernels "
@@ -2455,6 +2723,14 @@ def run(device, args) -> int:
     log(f"[card] {ident}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+
+    if args.families_only:
+        families_phase(device, args.seed, Launches())
+        log(card_identity())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2810,6 +3086,7 @@ def run(device, args) -> int:
                        "src/repro/kernels/flash_attention.py:96", {}),
         **serve_phase(device, args.seed, get_config(SERVE_ARCH), ledger, args.reps)}
     log(f"[serve] the serving and flash phases took {time.perf_counter() - t0:.1f} s")
+    families_phase(device, args.seed, ledger)
 
     # -- 5. the kernels line ----------------------------------------------------
     for name, entry in entries.items():

@@ -144,7 +144,7 @@ def _normal(gen, shape, dtype, scale):
     """``scale`` times standard normal draws from ``gen`` on its device,
     drawn in fp32 and cast, so one seed gives one model in every dtype."""
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def init_attn(gen: torch.Generator, cfg, *, layers: int, dtype: torch.dtype) -> Params:

@@ -1,4 +1,5 @@
-"""The port's model configs, layers and dense transformer against ``repro``.
+"""The port's model configs, layers, parameter trees and dense transformer
+against ``repro`` (the other families: ``tests/test_torch_families.py``).
 
 Inputs are made with numpy from a seed and given to both packages;
 ``repro``'s parameters are carried across with ``params_from_numpy``, so
@@ -261,28 +262,25 @@ def test_sliding_window_rolling_cache_matches_repro(models, jitted, l):
                    sliding_window=8)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "mamba2_780m", "llama_3_2_vision_11b",
-                                  "hubert_xlarge"])
-def test_unported_families_raise(arch):
-    cfg = tcfgs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.prefill({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
-
-
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", jcfgs.ARCH_IDS)
 def test_init_params_has_repros_paths_and_layouts(arch):
+    """Every family's tree: repro's paths, shapes and dtypes in float32 and
+    in bfloat16 (the MoE router and the SSM's per-head scalars stay
+    float32), and one seed gives one model in both dtypes."""
     tcfg = tcfgs.get_smoke(arch)
-    want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
-                        jt.init_params(jcfgs.get_smoke(arch), jax.random.PRNGKey(0)))
     p = tt.init_params(tcfg, torch.Generator().manual_seed(3))
-    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).removeprefix("torch.")), p)
-    assert got == want
-    again = tt.init_params(tcfg, torch.Generator().manual_seed(3))
-    assert torch.equal(p["blocks"]["attn"]["wq"], again["blocks"]["attn"]["wq"])
     bf16 = tt.init_params(dataclasses.replace(tcfg, dtype="bfloat16"),
                           torch.Generator().manual_seed(3))
-    assert torch.equal(bf16["lm_head"], p["lm_head"].to(torch.bfloat16))
+    for tree, dtype in ((p, "float32"), (bf16, "bfloat16")):
+        jcfg = dataclasses.replace(jcfgs.get_smoke(arch), dtype=dtype)
+        want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
+                            jax.eval_shape(lambda: jt.init_params(jcfg, jax.random.PRNGKey(0))))
+        got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).removeprefix("torch.")),
+                           tree)
+        assert got == want
+    again = tt.init_params(tcfg, torch.Generator().manual_seed(3))
+    assert torch.equal(p["embed"], again["embed"])
+    head = "embed" if tcfg.tie_embeddings else "lm_head"
+    assert torch.equal(bf16[head], p[head].to(torch.bfloat16))
+    for got, want in zip(jax.tree.leaves(bf16), jax.tree.leaves(p), strict=True):
+        assert torch.equal(got, want.to(got.dtype))

@@ -99,7 +99,8 @@ def _prompts(lengths, vocab, seed):
     return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
 
 
-@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "qwen3_32b", "qwen1_5_32b"])
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "qwen3_32b", "qwen1_5_32b",
+                                  "qwen3_moe_30b_a3b", "mamba2_780m", "hymba_1_5b"])
 @pytest.mark.parametrize("lengths,budget", [
     ((6, 6, 6), 6),             # equal lengths
     ((9, 3, 6, 1), 5),          # unequal: left padding, pads attended
