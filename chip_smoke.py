@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--graph hex:256,256,256] [--parts 8] [--seed 0]
                           [--baseline-csrc DIR] [--shard-map-only]
-                          [--families-only]
+                          [--families-only] [--train-only]
 
 Run from the root of a checkout.  It exits non-zero on any failure and
 prints no result line when ``torch.cuda.is_available()`` is false.  In
@@ -150,7 +150,19 @@ order it:
    the VLM's logits within 1e-3), prefill's last logits within 1e-4 of
    ``forward``'s for the 16,384 request and HuBERT's frames;
    ``--families-only`` runs this phase alone;
-6. prints one ``{"kernels": [...]}`` line with each kernel's launches
+6. trains TinyLlama-1.1B at full width and depth (bf16, remat "full",
+   random weights from ``--seed``) through ``train_loop`` (``[train]``):
+   4 steps of 8 x 4,096 tokens in 4 microbatches, each with its time,
+   tokens per second, loss, ``grad_norm``, ``lr`` and share of 989 TFLOP/s,
+   the peak memory, one more step profiled with its host syncs, 2 steps
+   with ``compress_grads``, the peak of ``lm_loss`` and its backward pass
+   at 2 x 1,024 for remat "none", "dots" and "full" and a 2-layer float32
+   copy's gradients equal across the three, and the restart drill at 2 of
+   22 layers (a run that fails at step 3 resumes from its step-2
+   checkpoint and must end with the uninterrupted run's loss); every loss
+   and ``grad_norm`` finite and the last loss below the first;
+   ``--train-only`` runs this phase alone;
+7. prints one ``{"kernels": [...]}`` line with each kernel's launches
    summed over the paths, the ``nvidia-smi`` line, and
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -553,8 +565,9 @@ def graph_ms(fn, reps: int, batches: int = 3) -> float:
     return float(np.median(times))
 
 
-def count_syncs(fn):
-    """Run ``fn`` once; returns (its result, the host syncs it made)."""
+def count_syncs(fn, sites=None):
+    """Run ``fn`` once; returns (its result, the host syncs it made).  A
+    list ``sites`` receives each sync's ``file:line``."""
     import torch
 
     torch.cuda.synchronize()
@@ -565,18 +578,21 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    synced = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        sites += [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in synced]
+    return out, len(synced)
 
 
-def profile_request(label, request) -> None:
-    """Where one request's time goes: host syncs, device busy share, top
-    device activities.  Runs the request twice: once counting syncs, once
-    under the profiler."""
+def profile_request(label, request, sites=None) -> None:
+    """Where one request's time goes: host syncs (each one's ``file:line``
+    into a list ``sites``), device busy share, top device activities.  Runs
+    the request twice: once counting syncs, once under the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, syncs = count_syncs(request)
+    _, syncs = count_syncs(request, sites)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1299,9 +1315,9 @@ def layer0_qkv(params, cfg, toks):
     import torch
 
     from repro_torch.models.layers import qkv_project, rms_norm
-    from repro_torch.models.transformer import _layer
+    from repro_torch.models.transformer import _unbind
 
-    bp = _layer(params["blocks"], 0)
+    bp = _unbind(params["blocks"])[0]
     h = rms_norm(params["embed"][toks.long()], bp["ln1"], cfg.norm_eps)
     return qkv_project(bp["attn"], h, cfg, torch.arange(toks.shape[1], device=toks.device))
 
@@ -1761,6 +1777,201 @@ def families_phase(device, seed, ledger) -> None:
         serve_family(arch, depth, check_depth, device, seed, ident)
     ledger.end("serve families (plain PyTorch, as in repro)", ())
     log(f"[serve] families: the phase took {time.perf_counter() - t0:.1f} s; {ident}")
+
+
+# The [train] phase: TinyLlama-1.1B trained at its published width and depth
+# (bf16, remat "full"), random weights from --seed.
+TRAIN_ARCH = "tinyllama_1_1b"
+TRAIN_SEQ = 4096                # the train_4k shape's sequence length
+TRAIN_BATCH = 8                 # train_4k's global batch of 256, cut to fit the script
+TRAIN_MICROBATCHES = 4          # microbatches of 2 x 4,096: accumulation runs
+TRAIN_STEPS = 4
+TRAIN_COMPRESSED_STEPS = 2      # compress_grads=True
+REMAT_SHAPE = (2, 1024)         # a backward pass that fits without remat
+REMAT_CHECK_LAYERS = 2          # the float32 copy whose gradients remat must not move
+DRILL_LAYERS = 2                # the restart drill: 2 of 22 layers, full width
+DRILL_STEPS, DRILL_FAIL, DRILL_EVERY = 4, 3, 2
+
+
+def train_flops(cfg, batch, seq) -> float:
+    """Model FLOPs of one training step of a dense config, PaLM's count
+    (arXiv:2204.02311, appendix B): 6 a token for every weight of a product
+    (the LM head included, the embedding gather not), plus 12 * layers *
+    q heads * head dim * seq a token for the attention's two products,
+    forward and backward, the whole square (the causal half is computed
+    too); remat's recomputation not counted."""
+    d, dh = cfg.d_model, cfg.head_dim
+    per_layer = d * dh * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * dh * d \
+        + 3 * d * cfg.d_ff
+    weights = cfg.n_layers * per_layer + d * cfg.vocab_size
+    return batch * seq * (6 * weights + 12 * cfg.n_layers * cfg.n_heads * dh * seq)
+
+
+def train_phase(device, seed, ledger) -> None:
+    """``[train]``: TinyLlama-1.1B trained through ``train_loop`` at full width
+    and depth (bf16, remat "full", 8 x 4,096 tokens a step in 4 microbatches),
+    a profiled step, a compressed run, the peaks of the three remat modes
+    and a float32 copy's gradients across them, and the restart drill.
+    The path launches no kernel: ``repro``'s model calls plain attention."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten
+
+    t_phase = time.perf_counter()
+    ident = card_identity()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="full")
+    b, l, mb = TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES
+    flops = train_flops(cfg, b, l)
+    kw = dict(global_batch=b, seq_len=l, microbatches=mb, seed=seed, device=device,
+              log_every=1)
+    log(f"[train] {cfg.name} ({cfg.dtype}, remat {cfg.remat!r}, all {cfg.n_layers} layers, "
+        f"{cfg.param_count()} parameters): {b} x {l} tokens a step in {mb} microbatches of "
+        f"{b // mb}; {flops / 1e12:.1f} model TFLOP a step; {ident}")
+
+    # The run a user starts: train_loop, TRAIN_STEPS steps.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ledger.start()
+    params, hist = train_loop(cfg, steps=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    ledger.end("train (plain PyTorch, as in repro)", ())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] parameters {sum(t.numel() for t in leaves(params))}, "
+        f"{tree_bytes(params) / 1e9:.2f} GB")
+    for h in hist:
+        log(f"[train] step {h['step']}: {h['step_time']:.4f} s, {b * l / h['step_time']:.1f} "
+            f"tokens/s, loss {h['loss']:.6f}, grad_norm {h['grad_norm']:.6f}, lr "
+            f"{h['lr']:.6g}; model FLOPs over 989 TFLOP/s bf16 "
+            f"{flops / h['step_time'] / BF16_FLOPS:.2%}; {ident}")
+    log(f"[train] peak {peak:.2f} GiB allocated over the run (parameters, m and v, the "
+        f"float32 gradient sums, a microbatch's gradients and activations)")
+    for h in hist:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"[train] step {h['step']}: loss {h['loss']} grad_norm "
+                                 f"{h['grad_norm']} not finite")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"[train] the loss did not fall: {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']}")
+
+    # One more step, as train_loop runs it (batch upload, step, one metrics
+    # read), profiled: host syncs and where the device time goes.
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, OptimizerConfig(total_steps=TRAIN_STEPS), microbatches=mb)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=l, global_batch=b, seed=seed)
+
+    def one_step():
+        _, _, metrics = step_fn(params, opt_state, to_device(data.batch_at(TRAIN_STEPS), device))
+        return torch.stack(list(metrics.values())).tolist()
+
+    sites = []
+    profile_request(f"train step {b}x{l}", one_step, sites)
+    log(f"[train] the profiled step's host syncs, by file:line: {sites}")
+    del params, opt_state, step_fn
+
+    # int8 gradient compression with error feedback.
+    torch.cuda.empty_cache()
+    comp = train_loop(cfg, steps=TRAIN_COMPRESSED_STEPS, compress_grads=True, **kw)[1]
+    for h in comp:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"[train] compressed step {h['step']} not finite: {h}")
+    log(f"[train] compress_grads: {len(comp)} steps, losses "
+        f"{[round(h['loss'], 6) for h in comp]}, grad_norms "
+        f"{[round(h['grad_norm'], 6) for h in comp]}, step times "
+        f"{[round(h['step_time'], 4) for h in comp]} s, all finite")
+
+    # Remat on the card: the peak of lm_loss and its backward pass for each
+    # mode at a shape that fits without remat; then a float32 copy's
+    # gradients, equal element for element across the three.
+    rb, rl = REMAT_SHAPE
+    rdata = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=rl, global_batch=rb, seed=seed)
+    rbatch = to_device(rdata.batch_at(0), device)
+
+    def grads(c, p):
+        flat = flatten(p)
+        loss, _ = lm_loss(p, c, rbatch)
+        return loss.detach(), torch.autograd.grad(loss, list(flat.values()))
+
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    resident = torch.cuda.memory_allocated() / 2**30
+    peaks = {}
+    for remat in ("none", "dots", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = grads(dataclasses.replace(cfg, remat=remat), params)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() / 2**30, time.perf_counter() - t0)
+        del out
+    log(f"[train] remat at {rb}x{rl}, all {cfg.n_layers} layers, bf16: peak GiB allocated "
+        "over lm_loss and its backward pass (parameters resident: "
+        f"{resident:.2f}), seconds: " + ", ".join(
+            f"{k} {v[0]:.2f} GiB {v[1]:.4f} s" for k, v in peaks.items()) + f"; {ident}")
+    if not max(peaks["dots"][0], peaks["full"][0]) < peaks["none"][0]:
+        raise AssertionError(f"[train] remat saved no memory: {peaks}")
+    del params
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, dtype="float32", n_layers=REMAT_CHECK_LAYERS)
+    params = init_params(c32, torch.Generator(device=device).manual_seed(seed))
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    loss0, g0 = grads(dataclasses.replace(c32, remat="none"), params)
+    for remat in ("dots", "full"):
+        loss, g = grads(dataclasses.replace(c32, remat=remat), params)
+        diff = max(float((a - b_).abs().max()) for a, b_ in zip(g, g0))
+        if not (torch.equal(loss, loss0) and all(torch.equal(a, b_) for a, b_ in zip(g, g0))):
+            raise AssertionError(f"[train] float32 remat {remat!r}: gradients differ from "
+                                 f"'none' by up to {diff:.3g}")
+    log(f"[train] float32 copy ({REMAT_CHECK_LAYERS} of {cfg.n_layers} layers, {rb}x{rl}): "
+        f"loss and all {len(g0)} gradient leaves of 'dots' and 'full' equal to 'none' "
+        "element for element")
+    del params, g0, g, loss0, loss
+
+    # The restart drill: DRILL_LAYERS of the layers at full width; a run that
+    # fails at step DRILL_FAIL restarts from its step-DRILL_EVERY checkpoint
+    # and ends with the uninterrupted run's loss.
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(cfg, n_layers=DRILL_LAYERS)
+    t0 = time.perf_counter()
+    full = train_loop(dcfg, steps=DRILL_STEPS, **kw)[1]
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            train_loop(dcfg, steps=DRILL_STEPS, ckpt_dir=d, ckpt_every=DRILL_EVERY,
+                       fail_at_step=DRILL_FAIL, **kw)
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("[train] the drill's injected failure did not fire")
+        committed = checkpoint.latest_step(d)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+        if committed != DRILL_EVERY or any(f.endswith(".tmp") for f in os.listdir(d)):
+            raise AssertionError(f"[train] drill: committed {committed}, {os.listdir(d)}")
+        _, resumed = train_loop(dcfg, steps=DRILL_STEPS, ckpt_dir=d, ckpt_every=DRILL_EVERY,
+                                **kw)
+    got, want = resumed[-1]["loss"], full[-1]["loss"]
+    if resumed[0]["step"] != DRILL_EVERY or not abs(got - want) <= 1e-5 * abs(want):
+        raise AssertionError(f"[train] drill: resumed at {resumed[0]['step']}, last loss "
+                             f"{got!r} against the uninterrupted run's {want!r}")
+    log(f"[train] restart drill ({DRILL_LAYERS} of {cfg.n_layers} layers, full width): failed "
+        f"at step {DRILL_FAIL}, step {committed} committed ({ckpt_bytes / 1e9:.2f} GB), resumed "
+        f"from it; last loss {got!r} against the uninterrupted {want!r} "
+        f"({'bit-equal' if got == want else f'relative difference {abs(got - want) / abs(want):.3g}'}"
+        f", limit 1e-5); {time.perf_counter() - t0:.1f} s")
+    log(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s; {ident}")
 
 
 PLAN_RUNS = 4                   # [plans]: runs of one cached plan
@@ -2684,6 +2895,9 @@ def main(argv=None) -> int:
     ap.add_argument("--families-only", action="store_true",
                     help="run the [serve] families phase alone (no kernel is built: the "
                          "families' path launches none), with no kernels line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run the [train] phase alone (no kernel is built: the training "
+                         "path launches none), with no kernels line")
     ap.add_argument("--shard-map-only", action="store_true",
                     help="build the kernels and run the [shard_map] phase alone (a "
                          "group of one rank per card, up to --parts), with no kernels "
@@ -2724,8 +2938,8 @@ def run(device, args) -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    if args.families_only:
-        families_phase(device, args.seed, Launches())
+    if args.families_only or args.train_only:
+        (families_phase if args.families_only else train_phase)(device, args.seed, Launches())
         log(card_identity())
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3088,7 +3302,10 @@ def run(device, args) -> int:
     log(f"[serve] the serving and flash phases took {time.perf_counter() - t0:.1f} s")
     families_phase(device, args.seed, ledger)
 
-    # -- 5. the kernels line ----------------------------------------------------
+    # -- 5. training -------------------------------------------------------------
+    train_phase(device, args.seed, ledger)
+
+    # -- 6. the kernels line ----------------------------------------------------
     for name, entry in entries.items():
         entry["launches"] = ledger.total(name)
     log(json.dumps({"kernels": [entries[name] for name in wrappers()]}))

@@ -88,6 +88,53 @@ def attention_dense(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0):
     return _gqa_out(torch.softmax(s, dim=-1), v)
 
 
+class _AttnCore(torch.autograd.Function):
+    """Dense attention with ``repro``'s bf16-operand backward
+    (``repro/models/layers.py::_attn_core``, its custom VJP): the softmax
+    math stays fp32, every tensor the backward pass materializes is cast to
+    q's dtype, products of those accumulate in fp32.  ``attention_dense``
+    does not call it: ``repro`` runs it only under its study flag
+    ``ATTN_CUSTOM_VJP``, off by default, and the port fixes the default."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        p = torch.softmax(_gqa_scores(q, k) + bias, dim=-1)
+        ctx.save_for_backward(q, k, v, p.to(q.dtype))
+        return _gqa_out(p, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, p16 = ctx.saved_tensors
+        dt, dh = q.dtype, q.shape[3]
+        g = q.shape[2] // k.shape[2]
+        do16 = do.to(dt)
+        k_rep = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+        v_rep = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
+        # dv (B, S, Hq, dh), then summed over each kv head's group.
+        dv_full = torch.einsum("bhqs,bqhd->bshd", p16, do16)
+        # fp32 accumulation of a bf16 product: the product of fp32 casts.
+        dp = torch.einsum("bqhd,bshd->bhqs", do16.float(), v_rep.float())
+        p32 = p16.float()
+        ds = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
+        ds16 = (ds * (dh ** -0.5)).to(dt)
+        dq = torch.einsum("bhqs,bshd->bqhd", ds16, k_rep)
+        dk_full = torch.einsum("bhqs,bqhd->bshd", ds16, q)
+
+        def fold(full):
+            if g == 1:
+                return full
+            b, s_len = full.shape[:2]
+            return full.reshape(b, s_len, k.shape[2], g, dh).sum(3)
+
+        return dq, fold(dk_full), fold(dv_full), None
+
+
+def _attn_core(q, k, v, bias):
+    """``repro``'s ``_attn_core``: attention over an additive fp32 ``bias``
+    (``_mask_bias``), differentiated by ``_AttnCore.backward``."""
+    return _AttnCore.apply(q, k, v, bias)
+
+
 def attention_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
                       q_chunk: int = 4096, k_chunk: int = 1024):
     """Flash-style attention: outer loop over Q chunks, inner online-softmax

@@ -1,5 +1,5 @@
 """Generic decoder/encoder LM assembled from ModelConfig: the counterpart of
-``repro/models/transformer.py`` (all but training's ``lm_loss`` and remat).
+``repro/models/transformer.py``.
 
 One code path covers the ten architectures of ``configs``:
 
@@ -11,11 +11,19 @@ One code path covers the ten architectures of ``configs``:
   audio   : encoder-only dense (no causal mask, ``frames @ frontend`` input)
 
 Layers run as a Python loop over the stacked layer axis (``repro``'s
-``lax.scan``).  Serving keeps ``repro``'s caches: a KV cache per layer (a
-rolling buffer of ``sliding_window`` slots where the config has one), the
-SSM's ``(conv, s)`` state per layer, the image keys and values of each
-cross-attention layer, and an int32 ``length`` that stays on the device so
-a decode step never waits on the host.  ``decode_step`` writes the new
+``lax.scan``): each call splits every stacked leaf into its layers once,
+with ``torch.unbind``, whose backward is one ``stack`` (indexing layer ``i``
+of a leaf would add into a zero tensor of the whole stack, once per layer,
+in the backward pass).  ``cfg.remat`` checkpoints each block under autograd
+as ``repro``'s ``_remat`` does; the VLM's cross-attention layers lie
+outside the checkpointed blocks, as in ``repro``.  ``lm_loss`` is
+``repro``'s training loss.
+
+Serving keeps ``repro``'s caches: a KV cache per layer (a rolling buffer
+of ``sliding_window`` slots where the config has one), the SSM's ``(conv,
+s)`` state per layer, the image keys and values of each cross-attention
+layer, and an int32 ``length`` that stays on the device so a decode step
+never waits on the host.  ``decode_step`` writes the new
 token's k/v and the new SSM state into the cache tensors in place
 (``repro`` returns a new cache; copying every layer's cache each step would
 move the whole cache for one token).
@@ -25,10 +33,16 @@ activation policy set); decode steps are dropless, as in ``repro``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -53,7 +67,7 @@ from repro_torch.models.ssm import (
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "params_from_numpy", "forward", "init_cache",
+__all__ = ["init_params", "params_from_numpy", "forward", "lm_loss", "init_cache",
            "decode_step", "prefill"]
 
 
@@ -61,9 +75,18 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked parameter tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unbind(tree: Params) -> list[Params]:
+    """The layers of a stacked parameter tree, each leaf split once."""
+    split = {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in tree.items()}
+    n = len(next(iter(split.values())))
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _layers(params: Params, cfg: ModelConfig) -> tuple[list[Params], list[Params] | None]:
+    """(the blocks, the cross-attention layers or None), each unbound."""
+    return (_unbind(params["blocks"]),
+            _unbind(params["cross"]) if cfg.n_cross_layers else None)
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -187,18 +210,48 @@ def _block(cfg: ModelConfig, x, bp, positions, *, ssm_state: bool = False):
     return x, aux, k, v, st
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the products with no batch dimensions (``mm``,
+    ``addmm``: every ``x @ W``), recompute the rest; ``repro``'s
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` checkpointed by ``cfg.remat`` where autograd records: ``"none"``
+    saves what autograd saves, ``"dots"`` keeps only ``_save_dots``'s
+    products, anything else recomputes the whole block.  Remat changes what
+    the backward pass keeps, never a number."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts, _save_dots))
+    return partial(checkpoint, fn, use_reentrant=False)
+
+
 def _scan_blocks(cfg, x, blocks, positions, layers, *, on_layer=None):
-    """The blocks ``layers`` in order. Returns (x, their aux losses summed,
-    fp32). ``on_layer(i, k, v, st)`` receives layer i's keys, values and
-    SSM state (prefill's cache)."""
+    """The blocks ``layers`` (indices into ``blocks``, the unbound layers) in
+    order. Returns (x, their aux losses summed, fp32). ``on_layer(i, k, v,
+    st)`` receives layer i's keys, values and SSM state (prefill's cache);
+    without it each block runs under ``_remat``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if on_layer is None:
+        def step(x, aux, bp):
+            x, a, *_ = _block(cfg, x, bp, positions)
+            return x, aux + sum(a.values()) if a else aux
+
+        step = _remat(step, cfg)
+        for i in layers:
+            x, aux = step(x, aux, blocks[i])
+        return x, aux
     for i in layers:
-        x, a, k, v, st = _block(cfg, x, _layer(blocks, i), positions,
-                                ssm_state=on_layer is not None)
+        x, a, k, v, st = _block(cfg, x, blocks[i], positions, ssm_state=True)
         if a:
             aux = aux + sum(a.values())
-        if on_layer is not None:
-            on_layer(i, k, v, st)
+        on_layer(i, k, v, st)
     return x, aux
 
 
@@ -240,14 +293,36 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None):
     x = _embed(params, cfg, tokens, frames)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks, cross = _layers(params, cfg)
     for g, layers in enumerate(_groups(cfg)):
-        x, a = _scan_blocks(cfg, x, params["blocks"], positions, layers)
-        if cfg.n_cross_layers:
-            cp = _layer(params["cross"], g)
-            x = _cross_block(cfg, x, cp, *_cross_kv(cfg, cp, img))
+        x, a = _scan_blocks(cfg, x, blocks, positions, layers)
+        if cross:
+            x = _cross_block(cfg, x, cross[g], *_cross_kv(cfg, cross[g], img))
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), aux
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
+    """Causal-LM (or frame-classification) cross-entropy + aux losses:
+    ``repro``'s ``lm_loss``.  Returns (loss, {"ce", "aux"}), fp32 scalars.
+
+    ``batch``: ``labels`` (B, L) integer (a label < 0 is masked out),
+    ``tokens``, ``img``, ``frames`` as ``forward`` takes them, except that
+    ``img`` is cast to the model's dtype here (``SyntheticLMData`` draws it
+    in float32; ``repro`` promotes the product instead).
+    """
+    img = batch.get("img")
+    logits, aux = forward(params, cfg, batch.get("tokens"), frames=batch.get("frames"),
+                          img=None if img is None else img.to(_dtype(cfg)))
+    labels = batch["labels"].long()
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    # A masked label's gather reads column 0; the mask zeroes its term.
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -314,11 +389,12 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache):
     """
     x = params["embed"][token.long()]
     length = cache["length"] + 1
+    blocks, cross = _layers(params, cfg)
     for g, layers in enumerate(_groups(cfg)):
         for i in layers:
-            x = _decode_block(cfg, x, _layer(params["blocks"], i), cache, i, length)
-        if cfg.n_cross_layers:
-            cp = _layer(params["cross"], g)
+            x = _decode_block(cfg, x, blocks[i], cache, i, length)
+        if cross:
+            cp = cross[g]
             h = rms_norm(x, cp["ln"], cfg.norm_eps)
             q = (h @ cp["attn"]["wq"]).reshape(x.shape[0], 1, cfg.n_heads, cfg.head_dim)
             o = attention_decode(q, cache["cross_k"][g], cache["cross_v"][g],
@@ -365,10 +441,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None,
             cache["ssm"]["s"][i] = st["s"]
 
     positions = torch.arange(l, device=dev)
+    blocks, cross = _layers(params, cfg)
     for g, layers in enumerate(_groups(cfg)):
-        x, _ = _scan_blocks(cfg, x, params["blocks"], positions, layers, on_layer=store)
-        if cfg.n_cross_layers:
-            cp = _layer(params["cross"], g)
+        x, _ = _scan_blocks(cfg, x, blocks, positions, layers, on_layer=store)
+        if cross:
+            cp = cross[g]
             k, v = _cross_kv(cfg, cp, img)
             x = _cross_block(cfg, x, cp, k, v)
             cache["cross_k"][g] = k

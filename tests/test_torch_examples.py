@@ -1,5 +1,5 @@
-"""The port's coloring examples (``examples/*_torch.py``) on the CPU,
-asserting what their ``repro`` originals assert."""
+"""The port's examples (``examples/*_torch.py``) on the CPU, asserting what
+their ``repro`` originals assert."""
 from __future__ import annotations
 
 import importlib.util
@@ -25,12 +25,12 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def run_example(name):
+def run_example(name, *argv):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(EXAMPLES, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.main(["--device", "cpu"])
+    return mod.main(["--device", "cpu", *argv])
 
 
 def test_quickstart_torch():
@@ -53,3 +53,12 @@ def test_color_jacobian_torch():
     assert out["pd2"].converged
     np.testing.assert_allclose(out["recovered"], out["J"], atol=1e-12)
     assert len(out["groups"]) < out["J"].shape[1]
+
+
+def test_train_lm_torch(tmp_path):
+    """The small dense LM's loss falls over 3 steps (the example asserts
+    it); a rerun with 5 resumes from the step-3 checkpoint and falls again."""
+    first = run_example("train_lm_torch", "--steps", "3", "--ckpt-dir", str(tmp_path))
+    assert [h["step"] for h in first] == [0, 1, 2]
+    again = run_example("train_lm_torch", "--steps", "5", "--ckpt-dir", str(tmp_path))
+    assert [h["step"] for h in again] == [3, 4]

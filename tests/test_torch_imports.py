@@ -57,6 +57,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.graph.partition import partition_graph
     from repro_torch.configs import get_smoke
     from repro_torch.launch import color as cli
+    from repro_torch.launch import train as train_cli
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
 
@@ -74,6 +75,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     out = ServeEngine(cfg, params, batch=1, max_len=8, device="cpu").generate(
         [np.arange(1, 4, dtype=np.int32)], max_new_tokens=2)
     assert len(out) == 1 and len(out[0]) == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.train_loop(cfg, steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--arch", "tinyllama_1_1b", "--smoke", "--steps", "1"])
+    _, hist = train_cli.train_loop(cfg, steps=1, global_batch=2, seq_len=8, device="cpu")
+    assert len(hist) == 1
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
