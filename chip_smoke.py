@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--graph hex:256,256,256] [--parts 8] [--seed 0]
                           [--baseline-csrc DIR] [--shard-map-only]
-                          [--families-only] [--train-only]
+                          [--families-only] [--train-only] [--sharded-only]
 
 Run from the root of a checkout.  It exits non-zero on any failure and
 prints no result line when ``torch.cuda.is_available()`` is false.  In
@@ -83,7 +83,7 @@ order it:
      with the batch's wall time beside the solo runs', the service's
      stats, steps, host syncs per step (``count_syncs``) and a carry's
      bytes beside the ``memory_allocated`` growth; and a
-     ``ColoringFrontend`` stream of 8 full requests alternating the graph
+     ``ColoringFrontend`` stream of 4 full requests alternating the graph
      and ``hex:128,128,128`` (``sparse_delta`` by name, which scatters
      with ``pair_scatter`` under ``cuda_fused``; one reduction pass),
      replayed cold and warm, each result equal to the
@@ -99,7 +99,7 @@ order it:
      calls and kernels > 0), one reduction pass on d1, then the service
      on the group as ``[service]`` drives it: ``ColoringService.run_batch``
      of 12 warm 10% d1 ``cuda_fused`` requests (``max_batch`` 8, refills >
-     0) and a ``ColoringFrontend`` stream of 8 alternating the graph and
+     0) and a ``ColoringFrontend`` stream of 4 alternating the graph and
      ``hex:128,128,128`` (``sparse_delta``, one reduction pass) cold and
      warm, each equal on every rank to its solo run on the engine (plus
      ``reduce_colors``), logged beside ``[service]``'s numbers; every
@@ -161,7 +161,24 @@ order it:
    22 layers (a run that fails at step 3 resumes from its step-2
    checkpoint and must end with the uninterrupted run's loss); every loss
    and ``grad_norm`` finite and the last loss below the first;
-   ``--train-only`` runs this phase alone;
+   ``--train-only`` runs this phase alone; then ``[sharded]``, the sharded
+   model stack on a ``DeviceMesh`` of one rank a card (one card: a group of
+   one in this process, a ``(1, 1)`` ``("data", "model")`` mesh; four
+   cards: one spawned process a card, ``(2, 2)``): Qwen3-30B-A3B at full
+   width (bf16, remat "full", ``moe_impl="shard_map"``, experts on
+   ``model``), 2 layers a rank, through ``train_loop(mesh=...)``, 3 steps
+   of ``2·dp`` x 4,096 tokens in 2 microbatches (each step's time,
+   tokens/s, loss, ``grad_norm``; each rank's peak memory), one more step
+   profiled on every rank (NCCL calls and kernels, > 0 with more than one
+   rank; the top kernels), float32 copies at 2 layers, dropless
+   (``capacity_factor`` E/k), of it and of Grok-1 (``moe_shard="tensor"``)
+   whose ``shard_map`` and ``gspmd`` MoE logits over 2 x 512 tokens agree
+   within 2e-4, and the elastic drill (a 2-layer run's step-2 checkpoint
+   from the phase's mesh, its parameters and step restored on ranks 0-1 as
+   ``(1, 2)``, on one card with no mesh: the parameters bit-equal to the
+   saved ones, the step train_loop resumes at 2); every loss and ``grad_norm``
+   finite, every rank the
+   same loss; ``--sharded-only`` runs this phase alone;
 7. prints one ``{"kernels": [...]}`` line with each kernel's launches
    summed over the paths, the ``nvidia-smi`` line, and
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -1974,6 +1991,386 @@ def train_phase(device, seed, ledger) -> None:
     log(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s; {ident}")
 
 
+SHARDED_ARCH = "qwen3_moe_30b_a3b"  # [sharded]: moe_impl "shard_map", moe_shard "expert"
+SHARDED_LAYERS = 2              # layers a rank: 2 on one card, 8 on four
+SHARDED_SEQ = 4096              # the train_4k shape's sequence length
+SHARDED_STEPS = 3               # of 2 * dp x 4,096 tokens
+SHARDED_MICROBATCHES = 2
+SHARDED_CHECK = (2, 512)        # the float32 parity forward: batch x tokens
+SHARDED_CHECK_ARCHS = ("qwen3_moe_30b_a3b", "grok_1_314b")   # "expert", "tensor"
+SHARDED_CHECK_LAYERS = 2
+SHARDED_TOL = 2e-4              # repro's tolerance between the two MoE engines
+SHARDED_DRILL = (1, 512, 2)     # the elastic drill: layers, tokens a row, steps saved
+SHARDED_DRILL_TOL = 1e-5        # the resumed step's loss against the restored parameters'
+SHARDED_LIMIT_S = 900           # the parent's wait for a spawned rank
+
+
+def sharded_world() -> int:
+    """Ranks of the [sharded] phase: one a card, up to 4 (2 on 2 or 3)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return 4 if n >= 4 else 2 if n >= 2 else 1
+
+
+def sharded_shape(world: int) -> tuple[int, int]:
+    """The ``("data", "model")`` mesh of ``world`` ranks."""
+    return {1: (1, 1), 2: (1, 2), 4: (2, 2)}[world]
+
+
+def profile_step(fn) -> dict:
+    """Run ``fn`` once under the profiler: wall and device busy ms, NCCL
+    kernels on the device and NCCL calls on the host, the top 8 device
+    activities (name, ms, count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return {"wall_ms": wall, "busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "nccl_kernels": sum(e.count for e in dev if "nccl" in e.key.lower()),
+            "nccl_calls": sum(e.count for e in events if e.device_type != DeviceType.CUDA
+                              and e.key.startswith("nccl:")),
+            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top]}
+
+
+def sharded_job(rank: int, world: int, seed: int, tmp: str) -> dict:
+    """One rank's share of ``[sharded]``, on the mesh of all ``world`` ranks:
+    ``train_loop(mesh=...)`` at full width, a profiled step, the float32
+    parity of the two MoE engines, the elastic drill.  Returns numbers."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import dp_axes, make_mesh
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models import forward, init_params, lm_loss
+    from repro_torch.models.layers import ShapesOnly
+    from repro_torch.models.sharding import (
+        P,
+        make_activation_policy,
+        placements,
+        shard_params,
+        use_policy,
+    )
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import flatten, placed_like, tree_map, whole
+
+    device = "cuda"
+    shape = sharded_shape(world)
+    mesh = make_mesh(shape, ("data", "model"), device=device)
+    dp = shape[0]
+    out: dict = {"rank": rank, "mesh": shape}
+
+    # train_loop on the mesh: the run a user starts.
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=SHARDED_LAYERS * world,
+                              moe_impl="shard_map")
+    b, l, mb = 2 * dp, SHARDED_SEQ, SHARDED_MICROBATCHES
+    kw = dict(global_batch=b, seq_len=l, microbatches=mb, seed=seed, device=device,
+              log_every=10**9)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, hist = train_loop(cfg, steps=SHARDED_STEPS, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["hist"] = [{k: h[k] for k in ("step", "step_time", "loss", "grad_norm", "lr")}
+                   for h in hist]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    flat = flatten(params)
+    out["n_params"] = sum(t.numel() for t in flat.values())
+    out["local_gb"] = sum(t.to_local().numel() * t.element_size() for t in flat.values()) / 1e9
+    out["cfg"] = (cfg.name, cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.d_ff,
+                  cfg.vocab_size, cfg.dtype, cfg.remat)
+
+    # One more step as train_loop runs it, profiled: NCCL calls and kernels.
+    policy = make_activation_policy(mesh, cfg, dp=dp_axes(mesh))
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, OptimizerConfig(total_steps=SHARDED_STEPS), microbatches=mb)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=l, global_batch=b, seed=seed)
+
+    def one_step():
+        with use_policy(policy):
+            _, _, m = step_fn(params, opt_state, to_device(data.batch_at(SHARDED_STEPS),
+                                                           device, mesh))
+            return torch.stack([whole(v).float() for v in m.values()]).tolist()
+
+    out["profile"] = profile_step(one_step)
+    del params, opt_state, step_fn, flat
+    torch.cuda.empty_cache()
+
+    # Float32 copies, dropless (capacity_factor E/k): shard_map against gspmd.
+    out["parity"] = {}
+    for arch in SHARDED_CHECK_ARCHS:
+        base = get_config(arch)
+        c32 = dataclasses.replace(base, dtype="float32", n_layers=SHARDED_CHECK_LAYERS,
+                                  capacity_factor=base.n_experts / base.experts_per_token,
+                                  remat="none")
+        t0 = time.perf_counter()
+        p32 = init_params(c32, torch.Generator(device=device).manual_seed(seed))
+        p32 = shard_params(p32, c32, mesh)
+        toks = torch.randint(0, c32.vocab_size, SHARDED_CHECK, device=device,
+                             generator=torch.Generator(device=device).manual_seed(seed + 1))
+        toks = distribute_tensor(toks, mesh, placements(P(dp_axes(mesh), None), mesh),
+                                 src_data_rank=None)
+        pol = make_activation_policy(mesh, c32, dp=dp_axes(mesh))
+        logits, secs = {}, {}
+        for impl in ("shard_map", "gspmd"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with use_policy(pol), torch.no_grad():
+                lg, _ = forward(p32, dataclasses.replace(c32, moe_impl=impl), toks)
+                logits[impl] = whole(lg)
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t1
+        err = float((logits["shard_map"] - logits["gspmd"]).abs().max())
+        out["parity"][arch] = {"err": err, "scale": float(logits["gspmd"].abs().max()),
+                               "moe_shard": c32.moe_shard, "s": secs,
+                               "total_s": time.perf_counter() - t0}
+        del logits, lg
+        if arch == SHARDED_ARCH:
+            # Remat changes no number: the float32 gradients of lm_loss on
+            # the mesh, remat "none" against "full" (shard_map MoE).
+            rdata = SyntheticLMData(vocab_size=c32.vocab_size, seq_len=SHARDED_CHECK[1],
+                                    global_batch=SHARDED_CHECK[0], seed=seed)
+            rbatch = to_device(rdata.batch_at(0), device, mesh)
+            flat = flatten(p32)
+            for t in flat.values():
+                t.requires_grad_(True)
+            grads = {}
+            for remat in ("none", "full"):
+                with use_policy(pol):
+                    loss, _ = lm_loss(p32, dataclasses.replace(c32, remat=remat), rbatch)
+                    g = torch.autograd.grad(loss, list(flat.values()))
+                grads[remat] = [whole(placed_like(x, flat[k])) for k, x in zip(flat, g)]
+                del loss, g
+            out["parity"][arch]["remat_err"] = max(
+                float((a - b).abs().max()) for a, b in zip(grads["none"], grads["full"]))
+            out["parity"][arch]["n_grads"] = len(flat)
+            del grads, flat, rbatch
+        del p32
+        torch.cuda.empty_cache()
+
+    # The elastic drill: the mesh's run checkpointed at step saved_at, then
+    # resumed by the first half of the ranks on a smaller mesh (one card: no
+    # mesh) through train_loop, which restores the parameters, m and v there
+    # and runs one more step.
+    layers, dl, saved_at = SHARDED_DRILL
+    dcfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=layers, moe_impl="shard_map")
+    ckpt_dir = os.path.join(tmp, "drill")
+    dkw = dict(global_batch=2 * dp, seq_len=dl, seed=seed, device=device, log_every=10**9,
+               ckpt_dir=ckpt_dir, ckpt_every=10**9)
+    t0 = time.perf_counter()
+    p1, _ = train_loop(dcfg, steps=saved_at, mesh=mesh, **dkw)
+    drill: dict = {"write_s": time.perf_counter() - t0}
+    saved = {k: whole(v) for k, v in flatten(p1).items()}
+    del p1
+    small = None
+    if world > 1:
+        small = DeviceMesh(device, torch.arange(world // 2).reshape(1, world // 2),
+                           mesh_dim_names=("data", "model"))
+    drill["small"] = None if small is None else tuple(small.shape)
+    if rank < max(world // 2, 1):
+        t0 = time.perf_counter()
+        params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device),
+                          init_params(dcfg, ShapesOnly()))
+        if small is not None:
+            params = shard_params(params, dcfg, small)
+        restored, extra = checkpoint.restore(ckpt_dir, checkpoint.latest_step(ckpt_dir),
+                                             {"params": params})
+        drill["equal"] = all(torch.equal(whole(v), saved[k])
+                             for k, v in flatten(restored["params"]).items())
+        drill["saved_step"] = extra["step"]
+        drill["restore_s"] = time.perf_counter() - t0
+        drill["ckpt_gb"] = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs
+                               in os.walk(os.path.join(ckpt_dir, f"step_{saved_at}"))
+                               for f in fs) / 1e9
+        # The loss that the resumed step must see: the restored parameters'
+        # on its batch, on the same mesh.
+        ddata = SyntheticLMData(vocab_size=dcfg.vocab_size, seq_len=dl, global_batch=2 * dp,
+                                seed=seed)
+        spol = None if small is None else make_activation_policy(small, dcfg,
+                                                                 dp=dp_axes(small))
+        with use_policy(spol), torch.no_grad():
+            loss, _ = lm_loss(restored["params"], dcfg,
+                              to_device(ddata.batch_at(saved_at), device, small))
+            drill["want_loss"] = float(whole(loss))
+        del params, restored, loss
+        t0 = time.perf_counter()
+        _, resumed = train_loop(dcfg, steps=saved_at + 1, mesh=small, **dkw)
+        drill["resume_s"] = time.perf_counter() - t0
+        drill["resumed"] = [{k: h[k] for k in ("step", "loss", "grad_norm")} for h in resumed]
+    out["drill"] = drill
+    del saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank, world, rendezvous, results, seed, tmp) -> None:
+    """A spawned rank of ``[sharded]``: joins the NCCL group on its card,
+    runs :func:`sharded_job` and sends its numbers back."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=rank,
+                                world_size=world, device_id=torch.device("cuda", rank))
+        try:
+            out = sharded_job(rank, world, seed, tmp)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def sharded_phase(seed, ledger) -> None:
+    """``[sharded]``: the sharded model stack on a ``DeviceMesh`` of one rank
+    a card (a group of one in this process on one card, ``(1, 1)``; one
+    spawned process a card on four, ``(2, 2)``): Qwen3-30B-A3B at full
+    width (``moe_impl="shard_map"``, experts on ``model``), 2 layers a rank,
+    through ``train_loop(mesh=...)``; a profiled step; float32 copies of it
+    and of Grok-1 (``moe_shard="tensor"``) whose ``shard_map`` and ``gspmd``
+    MoE logits agree within 2e-4; the elastic drill.  The path launches no
+    kernel of the port."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    ident = card_identity()
+    world = sharded_world()
+    ledger.start()
+    with tempfile.TemporaryDirectory() as tmp:
+        rendezvous = os.path.join(tmp, "rendezvous")
+        if world == 1:
+            dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
+                                    world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                outs = [sharded_job(0, 1, seed, tmp)]
+            finally:
+                dist.destroy_process_group()
+        else:
+            ctx = mp.get_context("spawn")
+            results = ctx.Queue()
+            procs = [ctx.Process(target=sharded_rank,
+                                 args=(r, world, rendezvous, results, seed, tmp))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            try:
+                got = {}
+                for _ in range(world):
+                    rank, status, payload = results.get(timeout=SHARDED_LIMIT_S)
+                    if status != "ok":
+                        raise AssertionError(f"[sharded] rank {rank} failed:\n{payload}")
+                    got[rank] = payload
+                for p in procs:
+                    p.join(timeout=60)
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            outs = [got[r] for r in range(world)]
+    ledger.end("sharded (plain PyTorch on a DeviceMesh, as in repro)", ())
+
+    o = outs[0]
+    name, n_layers, d, e, f, vocab, dtype, remat = o["cfg"]
+    b, l = 2 * o["mesh"][0], SHARDED_SEQ
+    log(f"[sharded] {name} on a {o['mesh']} ('data', 'model') mesh of {world} card(s): "
+        f"{n_layers} layers ({SHARDED_LAYERS} a rank), d {d}, {e} experts of d_ff {f}, "
+        f"vocab {vocab}, {dtype}, remat {remat!r}, moe_impl 'shard_map': {o['n_params']} "
+        f"parameters; {b} x {l} tokens a step in {SHARDED_MICROBATCHES} microbatches; {ident}")
+    for h0 in o["hist"]:
+        losses = {(round(x["hist"][h0["step"]]["loss"], 6)) for x in outs}
+        log(f"[sharded] step {h0['step']}: "
+            f"{max(x['hist'][h0['step']]['step_time'] for x in outs):.4f} s (slowest rank), "
+            f"{b * l / max(x['hist'][h0['step']]['step_time'] for x in outs):.1f} tokens/s, "
+            f"loss {h0['loss']:.6f}, grad_norm {h0['grad_norm']:.6f}, lr {h0['lr']:.6g}; "
+            f"{ident}")
+        if len(losses) != 1:
+            raise AssertionError(f"[sharded] step {h0['step']}: ranks disagree on the loss "
+                                 f"{losses}")
+    for x in outs:
+        for h in x["hist"]:
+            if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+                raise AssertionError(f"[sharded] rank {x['rank']} step {h['step']}: not "
+                                     f"finite {h}")
+        log(f"[sharded] rank {x['rank']}: peak {x['peak_gib']:.2f} GiB allocated over "
+            f"train_loop, its shards {x['local_gb']:.2f} GB of parameters; train_loop "
+            f"{x['train_s']:.1f} s")
+    for x in outs:
+        p = x["profile"]
+        log(f"[profile] sharded train step, rank {x['rank']}: wall {p['wall_ms']:.3f} ms, "
+            f"device busy {p['busy_ms']:.3f} ms ({p['busy_ms'] / p['wall_ms']:.1%}), NCCL "
+            f"kernels {p['nccl_kernels']}, NCCL calls {p['nccl_calls']}")
+        if x["rank"] == 0:
+            for key, ms, count in p["top"]:
+                log(f"[profile]   {ms:9.3f} ms x{count:<5d} {key}")
+    if world > 1 and not all(x["profile"]["nccl_kernels"] > 0 for x in outs):
+        raise AssertionError("[sharded] a rank's profiled step ran no NCCL kernel")
+    for arch in SHARDED_CHECK_ARCHS:
+        pa = o["parity"][arch]
+        err = max(x["parity"][arch]["err"] for x in outs)
+        log(f"[sharded] float32 {arch} ({SHARDED_CHECK_LAYERS} layers, moe_shard "
+            f"{pa['moe_shard']!r}, dropless), forward over {SHARDED_CHECK[0]} x "
+            f"{SHARDED_CHECK[1]}: shard_map against gspmd logits max abs err {err:.3g} "
+            f"(max |logit| {pa['scale']:.3g}, limit {SHARDED_TOL}); shard_map "
+            f"{pa['s']['shard_map']:.3f} s, gspmd {pa['s']['gspmd']:.3f} s; "
+            f"{pa['total_s']:.1f} s with the init")
+        if not err <= SHARDED_TOL:
+            raise AssertionError(f"[sharded] {arch}: shard_map and gspmd differ by {err}")
+        if "remat_err" in pa:
+            rerr = max(x["parity"][arch]["remat_err"] for x in outs)
+            log(f"[sharded] float32 {arch}: all {pa['n_grads']} gradient leaves of lm_loss "
+                f"on the mesh, remat 'full' against 'none': max abs difference {rerr:.3g} "
+                f"(limit {SHARDED_TOL})")
+            if not rerr <= SHARDED_TOL:
+                raise AssertionError(f"[sharded] {arch}: remat moves the gradients by {rerr}")
+    saved_at = SHARDED_DRILL[2]
+    drills = [x["drill"] for x in outs if "equal" in x["drill"]]
+    for dr in drills:
+        (h,) = dr["resumed"]
+        rel = abs(h["loss"] - dr["want_loss"]) / abs(dr["want_loss"])
+        if not (dr["equal"] and dr["saved_step"] == saved_at and h["step"] == saved_at
+                and rel <= SHARDED_DRILL_TOL and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"[sharded] elastic drill: {dr}")
+    dr = drills[0]
+    (h,) = dr["resumed"]
+    log(f"[sharded] elastic drill ({SHARDED_DRILL[0]} layers, full width): step {saved_at} "
+        f"saved from the {o['mesh']} mesh ({dr['ckpt_gb']:.2f} GB) in "
+        f"{max(x['drill']['write_s'] for x in outs):.1f} s ({saved_at} steps included); on "
+        f"{dr['small'] or 'one card without a mesh'}, {len(drills)} rank(s): the parameters "
+        f"restored bit-equal to the saved ones in {dr['restore_s']:.1f} s, then train_loop "
+        f"restored parameters, m and v and resumed at step {h['step']} in "
+        f"{dr['resume_s']:.1f} s (its checkpoint written): loss {h['loss']!r} against "
+        f"{dr['want_loss']!r} from the restored parameters (relative difference "
+        f"{rel:.3g}, limit {SHARDED_DRILL_TOL}), grad_norm {h['grad_norm']:.6f}")
+    log(f"[sharded] the phase took {time.perf_counter() - t_phase:.1f} s; {ident}")
+
+
 PLAN_RUNS = 4                   # [plans]: runs of one cached plan
 REDUCE_CASES = (                # [reduce]: (problem, backend, held against, passes,
     ("d1", "cuda_fused", "reference", 2, None),    # graph: None = the run's)
@@ -2898,6 +3295,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="run the [train] phase alone (no kernel is built: the training "
                          "path launches none), with no kernels line")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run the [sharded] phase alone (no kernel is built: the sharded "
+                         "model stack launches none), with no kernels line")
     ap.add_argument("--shard-map-only", action="store_true",
                     help="build the kernels and run the [shard_map] phase alone (a "
                          "group of one rank per card, up to --parts), with no kernels "
@@ -2938,6 +3338,13 @@ def run(device, args) -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    if args.sharded_only:
+        sharded_phase(args.seed, Launches())
+        log(card_identity())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.families_only or args.train_only:
         (families_phase if args.families_only else train_phase)(device, args.seed, Launches())
         log(card_identity())
@@ -3302,8 +3709,9 @@ def run(device, args) -> int:
     log(f"[serve] the serving and flash phases took {time.perf_counter() - t0:.1f} s")
     families_phase(device, args.seed, ledger)
 
-    # -- 5. training -------------------------------------------------------------
+    # -- 5. training, on one card and on a mesh ----------------------------------
     train_phase(device, args.seed, ledger)
+    sharded_phase(args.seed, ledger)
 
     # -- 6. the kernels line ----------------------------------------------------
     for name, entry in entries.items():

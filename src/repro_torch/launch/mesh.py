@@ -1,15 +1,71 @@
-"""The ``(node, local)`` factorization of the part axis.
+"""Meshes: the counterpart of ``repro/launch/mesh.py``.
 
-The port's own copy of ``factor_parts`` from ``repro/launch/mesh.py``.
-The device-mesh constructors belong to the multi-GPU engine, which is not
-ported yet (ROADMAP.md, queue 1 item 8).
+``make_mesh`` is a ``torch.distributed`` ``DeviceMesh`` over the default
+process group (one process per card), with ``repro``'s axis names as its
+dimension names.  ``make_production_mesh`` is a :class:`ShapeMesh`: the
+names and sizes of ``repro``'s production meshes, ``(16, 16)`` and ``(2,
+16, 16)``, with no process behind them, which is all the sharding rules,
+the specs and the dry run read (no group here holds 256 or 512 ranks).
+``make_two_level_mesh`` is the ``(node, local)`` factorization of the part
+axis as a ``DeviceMesh``; ``factor_parts`` is the port's own copy of
+``repro``'s.  Importing this module touches no device and no group.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
-__all__ = ["factor_parts"]
+__all__ = ["ShapeMesh", "make_mesh", "make_production_mesh", "make_two_level_mesh",
+           "dp_axes", "axis_sizes", "axis_names", "leads", "factor_parts"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh's axis names and sizes, with no process behind them."""
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ShapeMesh(axes, shape)
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default group,
+    whose world size must be the product of ``shape``; ``device`` is
+    ``"cuda"`` (one card a rank) unless the caller asks for ``"cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    return init_device_mesh(str(device), tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` or a :class:`ShapeMesh`."""
+    if isinstance(mesh, ShapeMesh):
+        return mesh.axis_names
+    return tuple(mesh.mesh_dim_names)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or a :class:`ShapeMesh`."""
+    return dict(zip(axis_names(mesh), tuple(mesh.shape)))
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes present in a mesh ('pod' + 'data')."""
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def leads(mesh) -> bool:
+    """Whether this process is the first rank of ``mesh`` (every coordinate
+    0), the one that writes checkpoints and logs; True without a mesh."""
+    return mesh is None or not any(mesh.get_coordinate())
 
 
 def factor_parts(n_parts: int, node_size: int | None = None) -> tuple[int, int]:
@@ -38,3 +94,12 @@ def factor_parts(n_parts: int, node_size: int | None = None) -> tuple[int, int]:
         raise ValueError(
             f"node_size {node_size} must divide the part count {n_parts}")
     return n_parts // node_size, node_size
+
+
+def make_two_level_mesh(n_parts: int, node_size: int | None = None, *, device="cuda"):
+    """A ``(node, local)`` ``DeviceMesh`` over the default group of
+    ``n_parts`` ranks.  The coloring engine keeps its flat part axis:
+    ``hier_delta`` derives the node structure from :func:`factor_parts`,
+    so both views agree as long as ranks enumerate node-major."""
+    n_nodes, node_size = factor_parts(n_parts, node_size)
+    return make_mesh((n_nodes, node_size), ("node", "local"), device=device)

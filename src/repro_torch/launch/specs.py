@@ -1,0 +1,153 @@
+"""Meta-device stand-ins and sharding specs for every dry-run cell: the
+counterpart of ``repro/launch/specs.py``.
+
+``step_and_specs(arch, shape, mesh)`` returns (fn, args, specs):
+``fn(*args)`` runs the cell's step (a training step, a prefill or encode,
+a decode step) on meta tensors, which have shapes and dtypes and no
+memory, and ``specs`` holds the fitted :class:`P` of every argument on
+``mesh`` (a ``DeviceMesh`` or a ``ShapeMesh``: only names and sizes are
+read).  ``repro`` lowers the same step with ``jax.jit`` under the cell's
+activation policy; the port runs it on the meta device
+(``launch/dryrun.py``), on plain tensors, where a policy constrains
+nothing, so it returns none.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ShapesOnly
+from repro_torch.models.sharding import P, params_sharding_tree
+from repro_torch.models.transformer import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    prefill,
+)
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.train.step import make_train_step
+from repro_torch.train.tree import map_with_path
+
+META = torch.device("meta")
+
+__all__ = ["params_specs", "opt_specs", "batch_specs", "cache_specs", "step_and_specs"]
+
+
+def params_specs(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as meta tensors."""
+    return init_params(cfg, ShapesOnly())
+
+
+def opt_specs(params):
+    """The optimizer state of a (meta) parameter tree."""
+    return init_opt_state(params)
+
+
+def _batch_axis_spec(mesh, global_batch: int):
+    dp = dp_axes(mesh)
+    sizes = axis_sizes(mesh)
+    dp_size = math.prod(sizes[a] for a in dp)
+    return dp if global_batch % dp_size == 0 else None
+
+
+def batch_specs(cfg: ModelConfig, shape_name: str, mesh):
+    """(batch of meta tensors, its specs) for a train/prefill batch."""
+    spec = SHAPES[shape_name]
+    b, l = spec.global_batch, spec.seq_len
+    dp = _batch_axis_spec(mesh, b)
+    i32, f32 = torch.int32, torch.float32
+    batch: dict = {"labels": torch.empty((b, l), dtype=i32, device=META)}
+    specs: dict = {"labels": P(dp, None)}
+    if cfg.frontend_dim:
+        batch["tokens"], specs["tokens"] = None, None
+        batch["frames"] = torch.empty((b, l, cfg.frontend_dim), dtype=f32, device=META)
+        specs["frames"] = P(dp, None, None)
+    else:
+        batch["tokens"] = torch.empty((b, l), dtype=i32, device=META)
+        specs["tokens"] = P(dp, None)
+    if cfg.n_cross_layers:
+        batch["img"] = torch.empty((b, cfg.vision_seq, cfg.d_model), dtype=f32, device=META)
+        specs["img"] = P(dp, None, None)
+    return batch, specs
+
+
+def cache_specs(cfg: ModelConfig, shape_name: str, mesh):
+    """(decode cache of meta tensors, its specs): the KV sequence axis on
+    ``model`` (context-parallel decode) where it divides."""
+    spec = SHAPES[shape_name]
+    b, s = spec.global_batch, spec.seq_len
+    cache = init_cache(cfg, b, s, device=META)
+    dp = _batch_axis_spec(mesh, b)
+    tp = "model" if "model" in axis_names(mesh) else None
+    tp_size = axis_sizes(mesh).get("model", 1)
+
+    def shard_one(name, leaf):
+        if name in ("k", "v"):
+            # (L, B, S, Hkv, dh): sequence on model (context-parallel).
+            tp_ok = tp if leaf.shape[2] % max(tp_size, 1) == 0 else None
+            return P(None, dp, tp_ok, None, None)
+        if name.startswith("cross_"):
+            return P(None, dp, None, None, None)
+        if name == "ssm/s":
+            return P(None, dp, tp if cfg.shard_ssm_heads else None, None, None)
+        if name == "ssm/conv":
+            return P(None, dp, None, None)
+        return P()  # length scalar
+
+    return cache, map_with_path(shard_one, cache)
+
+
+def step_and_specs(arch: str, shape_name: str, mesh, *,
+                   opt_cfg: OptimizerConfig | None = None, cfg=None):
+    """(fn, args, specs) for one dry-run cell.
+
+    ``cfg`` overrides the registry config (variants: remat policy, chunk
+    sizes, moe_impl)."""
+    cfg = cfg or get_config(arch)
+    spec = SHAPES[shape_name]
+    dp = dp_axes(mesh)
+    params = params_specs(cfg)
+    p_specs = params_sharding_tree(params, cfg, mesh, dp=dp)
+
+    if spec.kind == "train":
+        opt_state = opt_specs(params)
+        o_specs = {"m": p_specs, "v": p_specs, "step": P()}
+        batch, b_specs = batch_specs(cfg, shape_name, mesh)
+        return (make_train_step(cfg, opt_cfg or OptimizerConfig()), (params, opt_state, batch),
+                (p_specs, o_specs, b_specs))
+
+    if spec.kind == "prefill":
+        batch, b_specs = batch_specs(cfg, shape_name, mesh)
+        def img_of(batch):
+            # The model takes the image in its own dtype, as lm_loss casts it.
+            img = batch.get("img")
+            return None if img is None else img.to(getattr(torch, cfg.dtype))
+
+        if not cfg.causal:
+            # Encoder: "prefill" is the full forward (no cache).
+            def encode(params, batch):
+                return forward(params, cfg, batch["tokens"], img=img_of(batch),
+                               frames=batch.get("frames"))
+            return encode, (params, batch), (p_specs, b_specs)
+
+        def prefill_step(params, batch):
+            return prefill(params, cfg, batch["tokens"], img=img_of(batch),
+                           frames=batch.get("frames"))
+
+        return prefill_step, (params, batch), (p_specs, b_specs)
+
+    # decode
+    cache, c_specs = cache_specs(cfg, shape_name, mesh)
+    b = spec.global_batch
+    token = torch.empty((b, 1), dtype=torch.int32, device=META)
+    t_spec = P(_batch_axis_spec(mesh, b), None)
+
+    def serve_step(params, token, cache):
+        return decode_step(params, cfg, token, cache)
+
+    return serve_step, (params, token, cache), (p_specs, t_spec, c_specs)

@@ -1,4 +1,5 @@
-"""Model zoo of the port: ``repro.models`` on one card.
+"""Model zoo of the port: ``repro.models`` on one card or on a mesh
+(``models/sharding.py``).
 
 One generic LM assembled from :class:`ModelConfig` serves every family of
 ``configs``: dense and MoE decoders, Mamba-2's SSD blocks, Hymba's

@@ -17,8 +17,8 @@ Attention has three execution shapes:
 
 Parameters are plain dicts of tensors with ``repro``'s tree paths and
 layouts: stacked leading layer axis, ``(d_in, d_out)`` weights used as
-``x @ W``.  ``repro``'s ``shard_activation`` calls are the identity on one
-card and are left out.
+``x @ W``.  ``qkv_project`` constrains q, k and v as ``repro``'s does
+(``models/sharding.py``; the identity without a policy).
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import batch_split, shard_activation
 
 Params = dict[str, Any]
 
@@ -84,8 +86,9 @@ def _gqa_out(p, v):
 
 
 def attention_dense(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0):
+    q, k, v = batch_split(q), batch_split(k), batch_split(v)
     s = _gqa_scores(q, k) + _mask_bias(q_pos, k_pos, causal=causal, window=window)
-    return _gqa_out(torch.softmax(s, dim=-1), v)
+    return batch_split(_gqa_out(torch.softmax(s, dim=-1), v))
 
 
 class _AttnCore(torch.autograd.Function):
@@ -139,6 +142,7 @@ def attention_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
                       q_chunk: int = 4096, k_chunk: int = 1024):
     """Flash-style attention: outer loop over Q chunks, inner online-softmax
     loop over KV chunks.  Exact (fp32 accumulators)."""
+    q, k, v = batch_split(q), batch_split(k), batch_split(v)
     b, lq, hq, dh = q.shape
     lk = k.shape[1]
     q_chunk = min(q_chunk, lq)
@@ -163,7 +167,7 @@ def attention_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.transpose(1, 2).to(q.dtype))            # (B, qc, Hq, dh)
-    return torch.cat(outs, dim=1)
+    return batch_split(torch.cat(outs, dim=1))
 
 
 def attention_decode(q, k_cache, v_cache, length, *, window: int = 0):
@@ -187,9 +191,20 @@ def attention_decode(q, k_cache, v_cache, length, *, window: int = 0):
 # Parameterized modules (init + apply as plain functions over dicts).
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """Stands in for the generator of ``init_params`` (and the ``init_*``
+    functions it calls) to make meta tensors: the tree's shapes and dtypes,
+    with no draws and no memory (a meta device has no generator)."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen, shape, dtype, scale):
     """``scale`` times standard normal draws from ``gen`` on its device,
-    drawn in fp32 and cast, so one seed gives one model in every dtype."""
+    drawn in fp32 and cast, so one seed gives one model in every dtype.
+    A meta tensor of ``dtype`` for :class:`ShapesOnly`."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 
@@ -232,6 +247,9 @@ def qkv_project(p, x, cfg, positions, *, rope_on: bool = True):
     if rope_on:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = shard_activation(q, "attn_q")
+    k = shard_activation(k, "attn_kv")
+    v = shard_activation(v, "attn_kv")
     return q, k, v
 
 

@@ -28,8 +28,17 @@ token's k/v and the new SSM state into the cache tensors in place
 (``repro`` returns a new cache; copying every layer's cache each step would
 move the whole cache for one token).
 
-MoE layers run ``moe_apply`` (``repro``'s ``_moe_dispatch`` with no
-activation policy set); decode steps are dropless, as in ``repro``.
+Under an activation policy (``models/sharding.py``: parameters and batch
+as DTensors on a ``DeviceMesh``) the residual stream and the logits carry
+``repro``'s constraints; each block section and the LM head take their
+input with the sequence gathered and the batch split (``batch_split``, the
+Megatron-SP shape of ``repro``'s "block_compute"), which DTensor's view
+rules need before a product; and ``_moe_dispatch`` picks the MoE's engine as
+``repro``'s does: ``moe_apply_shard_map`` for ``moe_impl="shard_map"``
+where the mesh divides the batch, the sequence and the experts, else
+``moe_apply`` partitioned by DTensor.  Without a policy every constraint is
+the identity and the MoE is ``moe_apply``.  Decode steps are dropless
+``moe_apply``, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -56,7 +65,15 @@ from repro_torch.models.layers import (
     qkv_project,
     rms_norm,
 )
-from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.moe import init_moe, moe_apply, moe_apply_shard_map
+from repro_torch.models.sharding import (
+    batch_split,
+    get_policy,
+    replicated,
+    shard_activation,
+    use_policy,
+)
 from repro_torch.models.ssm import (
     init_ssm,
     init_ssm_state,
@@ -112,7 +129,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     ``init_params`` (``cfg.dtype``; the MoE router and the SSM's per-head
     scalars in float32), not the same numbers: the two frameworks draw
     differently.  Draws are fp32 cast to ``cfg.dtype``, so one seed gives
-    one model in every dtype."""
+    one model in every dtype.  ``generator=layers.ShapesOnly()`` makes the
+    tree on the meta device (``launch/specs.py``)."""
     dt = _dtype(cfg)
     dev = generator.device
     d, n_layers = cfg.d_model, cfg.n_layers
@@ -181,15 +199,35 @@ def _ssm_scale(cfg: ModelConfig) -> float:
     return 0.5 if cfg.parallel_ssm and cfg.has_attention else 1.0
 
 
+def _moe_dispatch(mp, h, cfg):
+    """Select the MoE execution engine (``repro``'s ``_moe_dispatch``)."""
+    policy = get_policy()
+    if policy is not None and cfg.moe_impl == "shard_map":
+        sizes = axis_sizes(policy.mesh)
+        tp = sizes.get("model", 1)
+        dp = 1
+        for a in ("pod", "data"):
+            dp *= sizes.get(a, 1)
+        seq_ok = h.shape[1] % tp == 0 and h.shape[0] % dp == 0
+        experts_ok = cfg.moe_shard != "expert" or cfg.n_experts % tp == 0
+        if seq_ok and experts_ok:
+            return moe_apply_shard_map(mp, h, cfg, policy)
+    return moe_apply(mp, h, cfg)
+
+
 def _ffn(cfg: ModelConfig, x, bp, *, dropless: bool):
     """The block's second half: ``x += moe(ln2 x)`` or ``mlp(ln2 x)``.
-    Returns (x, the MoE's aux loss terms, empty elsewhere)."""
+    Returns (x, the MoE's aux loss terms, empty elsewhere).  A full
+    sequence goes through ``_moe_dispatch``; a decode step (``dropless``)
+    through ``moe_apply``."""
     if cfg.is_moe:
-        m, aux = moe_apply(bp["moe"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
-                           dropless=dropless)
+        h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        m, aux = (moe_apply(bp["moe"], h, cfg, dropless=True) if dropless
+                  else _moe_dispatch(bp["moe"], h, cfg))
         return x + m, aux
     if cfg.d_ff:
-        return x + mlp_apply(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps), cfg), {}
+        h = batch_split(rms_norm(x, bp["ln2"], cfg.norm_eps))
+        return x + batch_split(mlp_apply(bp["mlp"], h, cfg)), {}
     return x, {}
 
 
@@ -198,7 +236,8 @@ def _block(cfg: ModelConfig, x, bp, positions, *, ssm_state: bool = False):
     (empty elsewhere); k, v are the layer's keys and values for prefill's
     cache (None in an attention-free block); st is the SSM's ``(conv, s)``
     after the sequence where ``ssm_state`` asks for it, else None."""
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = shard_activation(rms_norm(x, bp["ln1"], cfg.norm_eps), "residual")
+    h = batch_split(h)          # on a mesh: the section gathers the sequence
     delta, k, v, st = 0.0, None, None, None
     if cfg.has_attention:
         delta, k, v = _self_attention(bp["attn"], h, cfg, positions)
@@ -206,8 +245,9 @@ def _block(cfg: ModelConfig, x, bp, positions, *, ssm_state: bool = False):
         delta = (delta + ssm_apply(bp["ssm"], h, cfg)) * _ssm_scale(cfg)
         if ssm_state:
             st = ssm_prefill_state(bp["ssm"], h, cfg)
-    x, aux = _ffn(cfg, x + delta, bp, dropless=False)
-    return x, aux, k, v, st
+    # The section's output, and its gradient, keep that shape.
+    x, aux = _ffn(cfg, x + batch_split(delta), bp, dropless=False)
+    return shard_activation(x, "residual"), aux, k, v, st
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -226,6 +266,16 @@ def _remat(fn, cfg: ModelConfig):
     the backward pass keeps, never a number."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
+    policy = get_policy()
+    if policy is not None:
+        # The recomputation runs on autograd's thread (a card's backward
+        # has its own), where the thread-local policy is not set: it must
+        # recompute what the forward computed.
+        step = fn
+
+        def fn(*args):
+            with use_policy(policy):
+                return step(*args)
     if cfg.remat == "dots":
         return partial(checkpoint, fn, use_reentrant=False,
                        context_fn=partial(create_selective_checkpoint_contexts, _save_dots))
@@ -278,7 +328,7 @@ def _embed(params: Params, cfg: ModelConfig, tokens, frames):
     model's dtype) or the token embedding."""
     if cfg.frontend_dim:
         return frames.to(_dtype(cfg)) @ params["frontend"]
-    return params["embed"][tokens.long()]
+    return params["embed"][replicated(tokens.long())]
 
 
 def forward(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None):
@@ -290,7 +340,7 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None):
             (``repro`` would promote a wider one; torch refuses the product).
     frames: (B, L, frontend_dim) frame features (audio).
     """
-    x = _embed(params, cfg, tokens, frames)
+    x = shard_activation(_embed(params, cfg, tokens, frames), "residual")
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks, cross = _layers(params, cfg)
@@ -300,7 +350,20 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None):
             x = _cross_block(cfg, x, cross[g], *_cross_kv(cfg, cross[g], img))
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), aux
+    return shard_activation(batch_split(x) @ _head(params, cfg), "logits"), aux
+
+
+def _reduced(x):
+    """``x`` with every partial placement of a DTensor reduced: the gather
+    of the gold logits from vocab-sharded logits leaves a masked partial sum,
+    which DTensor cannot reduce-scatter once indexed; reduced in place it is
+    one all-reduce of (B, L, 1).  A plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
@@ -319,7 +382,7 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     # A masked label's gather reads column 0; the mask zeroes its term.
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    gold = _reduced(torch.gather(logits, -1, labels.clamp(min=0)[..., None]))[..., 0]
     mask = (labels >= 0).to(torch.float32)
     ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}
@@ -414,7 +477,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None,
     (``ssm_prefill_state``); each cross-attention layer's image keys and
     values are computed once.  ``img`` and ``frames`` as in ``forward``.
     """
-    x = _embed(params, cfg, tokens, frames)
+    x = shard_activation(_embed(params, cfg, tokens, frames), "residual")
     b, l = x.shape[:2]
     dev = x.device
     max_len = max_len or l
@@ -452,4 +515,4 @@ def prefill(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None,
             cache["cross_v"][g] = v
     cache["length"] = torch.full((), l, dtype=torch.int32, device=dev)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), cache
+    return batch_split(x) @ _head(params, cfg), cache

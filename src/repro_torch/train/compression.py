@@ -6,18 +6,20 @@ int8 quantization of the gradients, with an error-feedback accumulator
 the next, so the long-run gradient is unbiased.  On one card the int8
 round trip models what would cross a data-parallel all-reduce.
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so on the same
-inputs the results are ``repro``'s exactly.
+inputs the results are ``repro``'s exactly.  On a mesh each scale is the
+maximum over the whole leaf, as ``repro`` computes it under GSPMD: DTensor
+reduces the shards' maxima.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.train.optimizer import f32_zeros
 from repro_torch.train.tree import tree_map
 
 
 def init_state(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    return tree_map(f32_zeros, params)
 
 
 def _quantize(g):

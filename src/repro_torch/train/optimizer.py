@@ -6,6 +6,10 @@ runs in ``repro``'s order, in float32 from the parameter cast up, cast back
 to the parameter's dtype, the weight decay inside ``delta``.  Where
 ``repro`` donates the parameters and the state, the port updates their
 tensors in place (under ``torch.no_grad()``) and returns the same dicts.
+On a mesh the leaves are DTensors: ``m`` and ``v`` take each parameter's
+placements, each rank updates its own shards in place (the update is
+elementwise), and the clipping norm is the norm of the whole tree (DTensor
+reduces each leaf's partial sums).
 
 ``torch.optim.AdamW`` is not this optimizer: it keeps its moments in the
 parameter's dtype (bfloat16 for the published configs), applies the decay
@@ -19,7 +23,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.train.tree import leaves, tree_map
+from repro_torch.train.tree import leaves, placed_like, shard, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,15 +39,17 @@ class OptimizerConfig:
     clip_norm: float = 1.0
 
 
-def _f32_zeros(t: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+def f32_zeros(t: torch.Tensor) -> torch.Tensor:
+    """float32 zeros shaped like ``t``, on its device (a DTensor's: its mesh
+    and placements)."""
+    return torch.zeros_like(t, dtype=torch.float32)
 
 
 def init_opt_state(params) -> dict[str, Any]:
     dev = leaves(params)[0].device
     return {
-        "m": tree_map(_f32_zeros, params),
-        "v": tree_map(_f32_zeros, params),
+        "m": tree_map(f32_zeros, params),
+        "v": tree_map(f32_zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
@@ -83,6 +89,7 @@ def adamw_update(params, opt_state, grads, cfg: OptimizerConfig):
     b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
 
     def upd(p, m, v, g):
+        p, m, v, g = shard(p), shard(m), shard(v), shard(placed_like(g, p))
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
         mh = m / b1c

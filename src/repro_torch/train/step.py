@@ -7,7 +7,9 @@ results and metric keys.  Gradients come from ``torch.autograd.grad`` of
 accumulates the gradients into float32 zeros (``repro``'s ``lax.scan``);
 ``compress_grads`` sends them through the int8 round trip with error
 feedback before the update.  Metrics are device scalars: reading them is
-the caller's one host sync a step.
+the caller's one host sync a step.  On a mesh (DTensor leaves) each
+gradient is redistributed to its parameter's placements, so the sums,
+the optimizer state and the update stay shard by shard.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import lm_loss
 from repro_torch.train import compression
-from repro_torch.train.optimizer import OptimizerConfig, adamw_update
-from repro_torch.train.tree import flatten, map_with_path, tree_map
+from repro_torch.train.optimizer import OptimizerConfig, adamw_update, f32_zeros
+from repro_torch.train.tree import flatten, map_with_path, placed_like, shard, tree_map
 
 
 def make_train_step(
@@ -37,7 +39,7 @@ def make_train_step(
         loss, metrics = lm_loss(params, cfg, batch)
         grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True,
                                     materialize_grads=True)
-        by_path = dict(zip(flat, grads))
+        by_path = {k: placed_like(g, flat[k]) for k, g in zip(flat, grads)}
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 map_with_path(lambda path, _: by_path[path], params))
 
@@ -52,11 +54,10 @@ def make_train_step(
             return x[i * b:(i + 1) * b]
 
         loss = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        grads = tree_map(f32_zeros, params)
         for i in range(microbatches):
             mloss, _, mgrads = grads_of(params, {k: resplit(v, i) for k, v in batch.items()})
-            tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
+            tree_map(lambda acc, g: shard(acc).add_(shard(g)), grads, mgrads)
             loss = loss + mloss
         scale = 1.0 / microbatches
         return loss * scale, {}, tree_map(lambda g: g * scale, grads)

@@ -22,6 +22,32 @@ def flatten(tree: dict) -> dict[str, Any]:
     return out
 
 
+def shard(t):
+    """The rank's shard of a DTensor (its local tensor, the same storage);
+    a plain tensor as it is.  Elementwise updates in place run on shards,
+    with no DTensor dispatch for each operation."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def whole(t):
+    """A DTensor's full value on every rank (a collective); a plain tensor
+    as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def placed_like(g, p):
+    """A DTensor gradient in its parameter's placements (a plain one as is)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def leaves(tree: dict) -> list:
     return list(flatten(tree).values())
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import importlib
 import os
 import queue
 import time
@@ -335,18 +336,38 @@ def job_slots(rank, world):
 JOBS = {"matrix": job_matrix, "eight": job_eight, "slots": job_slots}
 
 
-def rank_main(rank, world, rendezvous, job, results):
+def rank_main(rank, world, rendezvous, job, results, module=__name__, args=()):
     torch.set_num_threads(1)
     try:
         dist.init_process_group(
             "gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
         try:
-            results.put((rank, "ok", JOBS[job](rank, world)))
+            jobs = importlib.import_module(module).JOBS
+            results.put((rank, "ok", jobs[job](rank, world, *args)))
         finally:
             dist.destroy_process_group()
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))
+
+
+def start_group(tmp_dir, world, job, *args, module=__name__):
+    """Spawn ``world`` gloo ranks running ``job`` of ``module``'s ``JOBS``
+    (called as ``job(rank, world, *args)``); returns the handle that
+    :func:`join_group` waits on, so the parent can work meanwhile."""
+    # A fork server: a fresh process (not a fork of this one, which may hold
+    # jax's threads) that imports torch and the job's module once; each rank
+    # is forked from it, so the ranks do not pay the imports again.
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([module])
+    results = ctx.Queue()
+    rendezvous = os.path.join(str(tmp_dir), f"rendezvous-{job}")
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, world, rendezvous, job, results, module, args),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return job, world, procs, results, time.monotonic() + JOIN_LIMIT_S
 
 
 def run_group(tmp_dir, world, job):
@@ -355,18 +376,15 @@ def run_group(tmp_dir, world, job):
     Raises ``AssertionError`` with the first rank's traceback when a rank
     fails, or when the group outlives :data:`JOIN_LIMIT_S` (every rank is
     then killed)."""
-    # A fork server: a fresh process (not a fork of this one, which may hold
-    # jax's threads) that imports torch and this module once; each rank is
-    # forked from it, so the ranks do not pay the imports again.
-    ctx = mp.get_context("forkserver")
-    ctx.set_forkserver_preload([__name__])
-    results = ctx.Queue()
-    rendezvous = os.path.join(str(tmp_dir), f"rendezvous-{job}")
-    procs = [ctx.Process(target=rank_main, args=(r, world, rendezvous, job, results),
-                         daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + JOIN_LIMIT_S
+    return join_group(start_group(tmp_dir, world, job))
+
+
+def join_group(handle, limit_s=None):
+    """The results by rank of a group :func:`start_group` started (see
+    :func:`run_group`); ``limit_s`` replaces :data:`JOIN_LIMIT_S`."""
+    job, world, procs, results, deadline = handle
+    if limit_s is not None:
+        deadline += limit_s - JOIN_LIMIT_S
     got = {}
     try:
         while len(got) < world:
@@ -376,7 +394,7 @@ def run_group(tmp_dir, world, job):
             except queue.Empty:
                 raise AssertionError(
                     f"{job}: ranks {sorted(set(range(world)) - set(got))} gave no "
-                    f"result within {JOIN_LIMIT_S} s") from None
+                    f"result within {limit_s or JOIN_LIMIT_S} s") from None
             if status != "ok":
                 raise AssertionError(f"{job}: rank {rank} failed:\n{payload}")
             got[rank] = payload

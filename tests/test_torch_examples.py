@@ -62,3 +62,18 @@ def test_train_lm_torch(tmp_path):
     assert [h["step"] for h in first] == [0, 1, 2]
     again = run_example("train_lm_torch", "--steps", "5", "--ckpt-dir", str(tmp_path))
     assert [h["step"] for h in again] == [3, 4]
+
+
+def test_moe_a2a_schedule_torch():
+    """Every off-device transfer of the routed batch lands in exactly one
+    phase, each phase contention-free, within twice the König bound (the
+    example asserts the bound)."""
+    out = run_example("moe_a2a_schedule_torch")
+    traffic, phases = out["traffic"], out["phases"]
+    flat = [t for ph in phases for t in ph]
+    want = {(int(s), int(d)) for s, d in zip(*np.nonzero(traffic)) if s != d}
+    assert sorted(flat) == sorted(want)
+    for ph in phases:
+        assert len({s for s, _ in ph}) == len(ph) == len({d for _, d in ph})
+    assert out["lb"] <= len(phases) <= 2 * out["lb"]
+    assert traffic.sum() == 8 * 64 * 2

@@ -57,9 +57,32 @@ def _two_level():
             t_two_level(t_gen.hex_mesh(12, 6, 6), 2, 2, second_layer=True))
 
 
+_WANT: dict = {}
+
+
 def _want(jpg, problem, exchange, **kw):
-    return j_dist.color_distributed(jpg, problem=problem, engine="simulate",
-                                    exchange=exchange, cache=False, **kw)
+    """``repro``'s simulate result, computed once for each named exchange
+    on one partition (the entry keeps ``jpg`` alive, so its id stays its
+    own); an exchange instance runs every time."""
+    def run():
+        return j_dist.color_distributed(jpg, problem=problem, engine="simulate",
+                                        exchange=exchange, cache=False, **kw)
+    if not isinstance(exchange, str):
+        return run()
+    key = (id(jpg), problem, exchange, tuple(sorted(kw.items())))
+    if key not in _WANT:
+        _WANT[key] = (jpg, run())
+    return _WANT[key][1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One thread, as the suite's workers share the cores: at these sizes
+    more threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _check_all_backends(tpg, want, problem, exchange, **kw):

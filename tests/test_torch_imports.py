@@ -17,9 +17,12 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# The card-only tests run on the card's machine too, which has no JAX.
+# The card-only tests run on the card's machine too, which has no JAX, and
+# the gloo ranks of the engine's and the sharded stack's tests start on
+# torch alone.
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-              + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_card.py"])
+              + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_card.py",
+                 ROOT / "tests" / "_shard_map_ranks.py", ROOT / "tests" / "_sharded_ranks.py"])
 
 
 def _imported_modules(path: pathlib.Path):

@@ -433,13 +433,30 @@ def test_repro_checkpoint_restores_and_trains_as_repro(stablelm_runs, tmp_path):
                                rtol=TRAJ_RTOL)
 
 
-def test_mesh_is_the_next_slice():
+def test_mesh_is_the_next_slice(tmp_path):
+    """The sharded path no longer raises: in a gloo group of one, ``mesh=``
+    a ``(1, 1)`` mesh and ``--mesh 1x1:data,model`` train as on one device
+    (``tests/test_torch_sharded.py`` holds a ``(2, 2)`` mesh of 4 ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
     cfg = tcfgs.get_smoke("tinyllama_1_1b")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ttrain.train_loop(cfg, steps=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ttrain.main(["--arch", "tinyllama_1_1b", "--smoke", "--mesh", "2x2:data,model",
-                     "--device", "cpu"])
+    kw = dict(steps=2, global_batch=2, seq_len=16, device="cpu")
+    _, plain = ttrain.train_loop(cfg, **kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            rank=0, world_size=1)
+    try:
+        _, meshed = ttrain.train_loop(cfg, mesh=make_mesh((1, 1), ("data", "model"),
+                                                          device="cpu"), **kw)
+        cli = ttrain.main(["--arch", "tinyllama_1_1b", "--smoke", "--steps", "2",
+                           "--global-batch", "2", "--seq-len", "16", "--mesh",
+                           "1x1:data,model", "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
+    for hist in (meshed, cli):
+        np.testing.assert_allclose([h["loss"] for h in hist], [h["loss"] for h in plain],
+                                   rtol=RESTART_RTOL)
 
 
 def test_cli_trains_and_resumes(tmp_path, capsys):
