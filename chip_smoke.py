@@ -178,7 +178,16 @@ order it:
    ``(1, 2)``, on one card with no mesh: the parameters bit-equal to the
    saved ones, the step train_loop resumes at 2); every loss and ``grad_norm``
    finite, every rank the
-   same loss; ``--sharded-only`` runs this phase alone;
+   same loss; ``--sharded-only`` runs this phase alone; both phases print
+   ``[roofline]`` lines: the roofline analysis of their step
+   (``repro_torch/roofline/analysis.py`` on meta tensors, in a process of
+   its own started with the phase; ``[sharded]``'s as rank 0 of
+   its mesh on a fake process group), its FLOPs, bytes, collective bytes
+   and calls, peak and three terms, the measured step over the largest
+   term, and one more step counted on the card by the analysis' own
+   counter: the predicted peak within 10% of the allocator's peak of that
+   step, and in ``[sharded]`` every rank's collective calls by kind equal
+   to the prediction;
 7. prints one ``{"kernels": [...]}`` line with each kernel's launches
    summed over the paths, the ``nvidia-smi`` line, and
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -1824,6 +1833,126 @@ def train_flops(cfg, batch, seq) -> float:
     return batch * seq * (6 * weights + 12 * cfg.n_layers * cfg.n_heads * dh * seq)
 
 
+ROOFLINE_PEAK_BOUND = 0.10      # |predicted / measured peak - 1| allowed (PERF.md)
+ROOFLINE_LIMIT_S = 600          # the wait for the analysis' process
+
+
+def roofline_prediction(phase: str, world: int = 1):
+    """:func:`predict_step` started in a spawned process of its own (the
+    fake process group cannot share a process with the phases' real one),
+    so that it runs while the phase works on the card: the future of its
+    record.  The process ends with its work."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    future = pool.submit(predict_step, phase, world)
+    pool.shutdown(wait=False)
+    return future
+
+
+def predict_step(phase: str, world: int) -> dict:
+    """The roofline analysis (``repro_torch/roofline/analysis.py``) of the
+    step that ``phase`` runs, built as that phase builds it, on meta
+    tensors: ``[train]``'s ("train") on one card with no mesh,
+    ``[sharded]``'s ("sharded") as rank 0 of its ``world``-rank mesh on a
+    fake process group."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import ShapesOnly
+    from repro_torch.models.sharding import make_activation_policy, shard_params, use_policy
+    from repro_torch.roofline.analysis import analyze_step, fake_mesh, fake_process_group
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    def batch(cfg, rows, seq, mesh=None):
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=0)
+        return to_device(data.batch_at(0), torch.device("meta"), mesh)
+
+    t0 = time.perf_counter()
+    if phase == "train":
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="full")
+        fn = make_train_step(cfg, OptimizerConfig(total_steps=TRAIN_STEPS),
+                             microbatches=TRAIN_MICROBATCHES)
+        params = init_params(cfg, ShapesOnly())
+        args = (params, init_opt_state(params), batch(cfg, TRAIN_BATCH, TRAIN_SEQ))
+        rec = analyze_step(fn, args, cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                           None)
+    else:
+        shape = sharded_shape(world)
+        with fake_process_group(world):
+            mesh = fake_mesh(shape, ("data", "model"))
+            cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=SHARDED_LAYERS * world,
+                                      moe_impl="shard_map")
+            fn = make_train_step(cfg, OptimizerConfig(total_steps=SHARDED_STEPS),
+                                 microbatches=SHARDED_MICROBATCHES)
+            params = shard_params(init_params(cfg, ShapesOnly()), cfg, mesh)
+            rows = 2 * shape[0]
+            args = (params, init_opt_state(params), batch(cfg, rows, SHARDED_SEQ, mesh))
+            with use_policy(make_activation_policy(mesh, cfg, dp=dp_axes(mesh))):
+                rec = analyze_step(fn, args, cfg,
+                                   ShapeSpec("train", SHARDED_SEQ, rows, "train"), mesh)
+    rec["analysis_s"] = time.perf_counter() - t0
+    return rec
+
+
+def counted_step(step_fn, params, opt_state, batch, policy=None) -> dict:
+    """One training step on the card under the roofline analysis' own
+    counter (``count_step``): its collective calls and bytes by kind, the
+    counter's peak of live tensors, the step's seconds, and the allocator's
+    peak less what was held before the step beyond the step's arguments."""
+    import torch
+
+    from repro_torch.models.sharding import use_policy
+    from repro_torch.roofline.analysis import count_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with use_policy(policy):
+        c = count_step(step_fn, (params, opt_state, batch))
+    torch.cuda.synchronize()
+    args = c["argument_size_in_bytes"]
+    return {"calls": c["collective_calls_per_dev"], "bytes": c["collective_bytes_per_dev"],
+            "step_s": time.perf_counter() - t0, "args": args,
+            "tally": c["peak_memory_in_bytes"],
+            "peak": torch.cuda.max_memory_allocated() - (held - args), "held": held}
+
+
+def roofline_line(label: str, rec: dict) -> str:
+    """A ``[roofline]`` line of one predicted step."""
+    from repro_torch.roofline.analysis import CARD
+
+    coll = {k: int(v) for k, v in rec["collective_bytes_per_dev"].items()}
+    return (f"[roofline] {label} predicted (meta tensors, {rec['chips']} chip(s); "
+            f"{rec['analysis_s']:.1f} s in a process of its own): FLOPs "
+            f"{rec['hlo_flops_per_dev']:.6e}, bytes {rec['hlo_bytes_per_dev']:.6e}, collective "
+            f"bytes {coll} (calls {rec['collective_calls_per_dev']}), arguments "
+            f"{rec['argument_size_in_bytes'] / 2**30:.3f} GiB, peak "
+            f"{rec['peak_memory_in_bytes'] / 2**30:.3f} GiB; terms compute "
+            f"{rec['compute_s']:.6f} s, memory {rec['memory_s']:.6f} s, collective "
+            f"{rec['collective_s']:.6f} s, dominant {rec['dominant']}; useful_flops_ratio "
+            f"{rec['useful_flops_ratio']:.4f} (data-sheet constants of {CARD})")
+
+
+def check_peak(label: str, predicted: int, measured: float) -> float:
+    """The predicted peak over the measured one; fails beyond the bound."""
+    ratio = predicted / measured
+    if not abs(ratio - 1) <= ROOFLINE_PEAK_BOUND:
+        raise AssertionError(f"[roofline] {label}: predicted peak {predicted} B against "
+                             f"{measured:.0f} B measured (ratio {ratio:.4f}, bound "
+                             f"{ROOFLINE_PEAK_BOUND})")
+    return ratio
+
+
 def train_phase(device, seed, ledger) -> None:
     """``[train]``: TinyLlama-1.1B trained through ``train_loop`` at full width
     and depth (bf16, remat "full", 8 x 4,096 tokens a step in 4 microbatches),
@@ -1845,6 +1974,7 @@ def train_phase(device, seed, ledger) -> None:
     from repro_torch.train.tree import flatten
 
     t_phase = time.perf_counter()
+    prediction = roofline_prediction("train")
     ident = card_identity()
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="full")
     b, l, mb = TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES
@@ -1858,11 +1988,13 @@ def train_phase(device, seed, ledger) -> None:
     # The run a user starts: train_loop, TRAIN_STEPS steps.
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()        # left by earlier phases, not the run's
     ledger.start()
     params, hist = train_loop(cfg, steps=TRAIN_STEPS, **kw)
     torch.cuda.synchronize()
     ledger.end("train (plain PyTorch, as in repro)", ())
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    peak = peak_bytes / 2**30
     log(f"[train] parameters {sum(t.numel() for t in leaves(params))}, "
         f"{tree_bytes(params) / 1e9:.2f} GB")
     for h in hist:
@@ -1893,6 +2025,22 @@ def train_phase(device, seed, ledger) -> None:
     sites = []
     profile_request(f"train step {b}x{l}", one_step, sites)
     log(f"[train] the profiled step's host syncs, by file:line: {sites}")
+
+    # The roofline analysis of the same step, against the run and against
+    # one more step counted on the card.
+    pred = prediction.result(ROOFLINE_LIMIT_S)
+    log(roofline_line(f"[train] step {b}x{l} in {mb} microbatches", pred))
+    c = counted_step(step_fn, params, opt_state,
+                     to_device(data.batch_at(TRAIN_STEPS + 1), device))
+    step_s = float(np.median([h["step_time"] for h in hist[1:]]))
+    largest = max(pred["compute_s"], pred["memory_s"], pred["collective_s"])
+    ratio = check_peak("[train]", pred["peak_memory_in_bytes"], c["peak"])
+    log(f"[roofline] [train] measured: step {step_s:.4f} s (median of steps 1-"
+        f"{len(hist) - 1}) = {step_s / largest:.3f} x the largest term ({pred['dominant']}, "
+        f"{largest:.6f} s); one step's peak {c['peak'] / 2**30:.3f} GiB allocated (the "
+        f"counter's tally of live tensors on the card {c['tally'] / 2**30:.3f} GiB; "
+        f"train_loop's run {peak_bytes / 2**30:.3f} GiB), predicted / measured {ratio:.4f} "
+        f"(bound {ROOFLINE_PEAK_BOUND}); {ident}")
     del params, opt_state, step_fn
 
     # int8 gradient compression with error feedback.
@@ -2110,6 +2258,12 @@ def sharded_job(rank: int, world: int, seed: int, tmp: str) -> dict:
             return torch.stack([whole(v).float() for v in m.values()]).tolist()
 
     out["profile"] = profile_step(one_step)
+
+    # One more step on every rank under the roofline analysis' own counter
+    # on the real group: collective calls by kind, and the peak.
+    out["counted"] = counted_step(step_fn, params, opt_state,
+                                  to_device(data.batch_at(SHARDED_STEPS + 1), device, mesh),
+                                  policy)
     del params, opt_state, step_fn, flat
     torch.cuda.empty_cache()
 
@@ -2261,6 +2415,7 @@ def sharded_phase(seed, ledger) -> None:
     t_phase = time.perf_counter()
     ident = card_identity()
     world = sharded_world()
+    prediction = roofline_prediction("sharded", world)
     ledger.start()
     with tempfile.TemporaryDirectory() as tmp:
         rendezvous = os.path.join(tmp, "rendezvous")
@@ -2331,6 +2486,26 @@ def sharded_phase(seed, ledger) -> None:
                 log(f"[profile]   {ms:9.3f} ms x{count:<5d} {key}")
     if world > 1 and not all(x["profile"]["nccl_kernels"] > 0 for x in outs):
         raise AssertionError("[sharded] a rank's profiled step ran no NCCL kernel")
+
+    # The roofline analysis of the same step on a fake group of as many
+    # ranks, against the step counted on the real one.
+    pred = prediction.result(ROOFLINE_LIMIT_S)
+    log(roofline_line(f"[sharded] step {b}x{l} in {SHARDED_MICROBATCHES} microbatches, rank 0 "
+                      f"of {o['mesh']}", pred))
+    for x in outs:
+        c = x["counted"]
+        ratio = check_peak(f"[sharded] rank {x['rank']}", pred["peak_memory_in_bytes"],
+                           c["peak"])
+        counted = {k: int(v) for k, v in c["bytes"].items()}
+        log(f"[roofline] [sharded] rank {x['rank']} counted on the card: collective calls "
+            f"{c['calls']}, bytes {counted}; step {c['step_s']:.4f} s under the counter; peak {c['peak'] / 2**30:.3f} GiB "
+            f"(held before the step {c['held'] / 2**30:.3f} GiB, of it the step's arguments "
+            f"{c['args'] / 2**30:.3f} GiB; the counter's tally {c['tally'] / 2**30:.3f} GiB), "
+            f"predicted / measured {ratio:.4f} (bound {ROOFLINE_PEAK_BOUND}); {ident}")
+        if c["calls"] != pred["collective_calls_per_dev"]:
+            raise AssertionError(f"[roofline] [sharded] rank {x['rank']}: collective calls "
+                                 f"{c['calls']} on the card, {pred['collective_calls_per_dev']}"
+                                 " predicted")
     for arch in SHARDED_CHECK_ARCHS:
         pa = o["parity"][arch]
         err = max(x["parity"][arch]["err"] for x in outs)

@@ -30,25 +30,27 @@ def hex_mesh(nx: int, ny: int, nz: int, *, name: str | None = None) -> Graph:
     ±z.  Matches the paper's "avg degree 6, max degree 6" hexahedral inputs.
     Vertex ids are x-major so 1D block partitioning yields the paper's
     "slab" decomposition along the x axis.
+
+    The CSR is written directly, each row's neighbors in ascending order
+    (-x, -y, -z, +z, +y, +x): the same graph ``build_graph`` makes from the
+    edge list, without its sort over every edge.
     """
     n = nx * ny * nz
-    ids = np.arange(n, dtype=np.int64)
-    x = ids // (ny * nz)
-    rem = ids % (ny * nz)
-    y = rem // nz
-    z = rem % nz
-    srcs, dsts = [], []
-    for axis, coord, lim, stride in (
-        ("x", x, nx, ny * nz),
-        ("y", y, ny, nz),
-        ("z", z, nz, 1),
-    ):
-        mask = coord < lim - 1
-        srcs.append(ids[mask])
-        dsts.append(ids[mask] + stride)
-    src = np.concatenate(srcs)
-    dst = np.concatenate(dsts)
-    return build_graph(src, dst, n, name=name or f"hex_{nx}x{ny}x{nz}")
+    x = np.arange(nx)[:, None, None]
+    y = np.arange(ny)[None, :, None]
+    z = np.arange(nz)[None, None, :]
+    steps = ((x > 0, -ny * nz), (y > 0, -nz), (z > 0, -1),
+             (z < nz - 1, 1), (y < ny - 1, nz), (x < nx - 1, ny * nz))
+    mask = np.empty((nx, ny, nz, len(steps)), dtype=bool)
+    for k, (m, _) in enumerate(steps):
+        mask[..., k] = m
+    mask = mask.reshape(n, len(steps))
+    cand = (np.arange(n, dtype=np.int32)[:, None]
+            + np.array([d for _, d in steps], dtype=np.int32))
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(mask.sum(axis=1), out=offsets[1:])
+    return Graph(n=n, offsets=offsets, targets=cand[mask],
+                 name=name or f"hex_{nx}x{ny}x{nz}")
 
 
 def grid_2d(nx: int, ny: int, *, name: str | None = None) -> Graph:

@@ -1,18 +1,25 @@
-"""Dry run of every (arch × shape × mesh) cell on the meta device: the
-counterpart of ``repro/launch/dryrun.py``.
+"""Dry run of every (arch × shape × mesh) cell: the counterpart of
+``repro/launch/dryrun.py``.
 
-For each runnable cell, with no device memory and no process group:
-  * the cell's step (``launch/specs.py``) runs once on meta tensors under
-    ``torch.utils.flop_counter.FlopCounterMode``: the step's FLOPs, which
-    the mesh does not change (``--both-meshes`` runs each cell's step
-    once);
-  * each device's argument bytes from the fitted specs on the mesh (the
-    parameters, ``m`` and ``v``, the batch, or the token and the cache).
-The meshes are ``repro``'s production meshes as names and sizes
-(``launch/mesh.py::make_production_mesh``).  ``repro`` compiles each cell
-with XLA and parses its HLO (``roofline/analysis.py``); the port has no
-HLO, so its records hold no compiler memory analysis and no collective
-bytes.
+For each runnable cell, with no device memory and no data moved:
+  * the cell's step (``launch/specs.py``) with its arguments placed on a
+    ``DeviceMesh`` as ``train_loop(mesh=...)`` places them, meta DTensors
+    on a fake process group that holds the mesh's ranks;
+  * the step runs once, as rank 0, under the cell's activation policy and
+    ``roofline/analysis.py``'s counter: rank 0's FLOPs, bytes, collective
+    bytes by kind, the three roofline terms, and its argument, output and
+    peak bytes (an eager program's live tensors, where ``repro`` reads the
+    compiler's ``memory_analysis()``).
+``repro``'s ``flops`` and ``bytes_accessed`` come from XLA's
+``cost_analysis()``; the port has one count, so they equal
+``hlo_flops_per_dev`` and ``hlo_bytes_per_dev``.
+
+A process has one default group, so the CLI owns it: one fake group of
+the largest mesh's size, 512 ranks with ``--both-meshes``, and the
+``(16, 16)`` mesh on its first 256 (rank 0 is in both).  One group and one
+process keep the cells in sequence, as ``repro`` runs them, at one group
+start-up.  :func:`run_cell` runs inside a fake group only: in a real one
+the step's collectives would run.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
@@ -26,52 +33,40 @@ import math
 import time
 import traceback
 
-from torch.utils.flop_counter import FlopCounterMode
-
-from repro_torch.configs import cells
-from repro_torch.launch.mesh import axis_sizes, make_production_mesh
-from repro_torch.launch.specs import step_and_specs
+from repro_torch.configs import SHAPES, cells, get_config
+from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
+from repro_torch.launch.specs import distribute_args, step_and_specs
+from repro_torch.models.sharding import use_policy
+from repro_torch.roofline.analysis import (
+    analyze_step,
+    fake_mesh,
+    fake_process_group,
+    in_fake_group,
+)
 from repro_torch.train.tree import flatten
 
-__all__ = ["device_bytes", "run_cell", "main"]
+__all__ = ["run_cell", "main"]
 
 
-def device_bytes(tree, specs, mesh) -> int:
-    """One device's bytes of ``tree`` laid out by ``specs`` on ``mesh``: each
-    leaf's bytes over the product of the axis sizes that split it."""
-    sizes = axis_sizes(mesh)
-    flat, flat_specs = flatten(tree), flatten(specs)
-    total = 0
-    for key, leaf in flat.items():
-        if leaf is None:
-            continue
-        parts = 1
-        for entry in flat_specs[key] or ():
-            for a in (entry if isinstance(entry, tuple) else (entry,) if entry else ()):
-                parts *= sizes[a]
-        total += leaf.numel() * leaf.element_size() // parts
-    return total
-
-
-def _as_tree(x) -> dict:
-    return x if isinstance(x, dict) else {"": x}
-
-
-def run_cell(arch: str, shape: str, mesh, *, verbose: bool = True, cfg=None,
-             flops: float | None = None) -> dict:
-    """Build and run one cell on the meta device; returns its record.
-    ``flops``, where given, is the step's count from another mesh, and the
-    step does not run again."""
+def run_cell(arch: str, shape: str, mesh, *, verbose: bool = True, cfg=None) -> dict:
+    """Build and run one cell as rank 0 of ``mesh`` (a ``DeviceMesh`` of the
+    fake default group, or a ``ShapeMesh`` laid on its first ranks);
+    returns its record."""
+    if not in_fake_group():
+        raise RuntimeError("run_cell runs inside a fake process group "
+                           "(roofline.analysis.fake_process_group), never a real one")
+    if isinstance(mesh, ShapeMesh):
+        mesh = fake_mesh(mesh.shape, mesh.axis_names)
+    cfg = cfg or get_config(arch)
     t0 = time.time()
-    fn, args, specs = step_and_specs(arch, shape, mesh, cfg=cfg)
+    fn, args, specs, policy = step_and_specs(arch, shape, mesh, cfg=cfg)
+    args = distribute_args(args, specs, mesh)
     t_build = time.time() - t0
     t0 = time.time()
-    if flops is None:
-        with FlopCounterMode(display=False) as counter:
-            fn(*args)
-        flops = float(counter.get_total_flops())
+    with use_policy(policy):
+        analysis = analyze_step(fn, args, cfg, SHAPES[shape], mesh)
     t_run = time.time() - t0
-    arg_bytes = [device_bytes(_as_tree(a), _as_tree(s), mesh) for a, s in zip(args, specs)]
+    params = flatten(args[0])
     record = {
         "arch": arch,
         "shape": shape,
@@ -79,17 +74,19 @@ def run_cell(arch: str, shape: str, mesh, *, verbose: bool = True, cfg=None,
         "status": "ok",
         "build_s": round(t_build, 2),
         "run_s": round(t_run, 2),
-        "params": sum(t.numel() for t in flatten(args[0]).values()),
-        "flops": flops,
-        "flops_per_device": flops / math.prod(mesh.shape),
-        "argument_size_in_bytes": sum(arg_bytes),
-        "param_bytes": arg_bytes[0],
+        "flops": analysis["hlo_flops_per_dev"],
+        "bytes_accessed": analysis["hlo_bytes_per_dev"],
+        "params": sum(t.numel() for t in params.values()),
+        "param_bytes": sum(t.to_local().numel() * t.element_size() for t in params.values()),
+        **analysis,
     }
     if verbose:
         print(f"[dryrun] {arch} × {shape} × {record['mesh']}: OK "
               f"(build {t_build:.1f}s, run {t_run:.1f}s)")
-        print(f"  per-device argument bytes {record['argument_size_in_bytes']:.4g} "
-              f"(parameters {record['param_bytes']:.4g}); flops={record['flops']:.3e}")
+        print(f"  memory: { {k: v for k, v in record.items() if k.endswith('in_bytes')} }")
+        print(f"  per device: flops={record['flops']:.3e} bytes={record['bytes_accessed']:.3e} "
+              f"collectives={record['collective_bytes_per_dev']}; dominant "
+              f"{record['dominant']}, useful {record['useful_flops_ratio']:.3f}")
     return record
 
 
@@ -102,32 +99,32 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--out", default=None, help="append JSONL records here")
     args = ap.parse_args(argv)
 
-    meshes = []
+    shapes = []
     if args.both_meshes or not args.multi_pod:
-        meshes.append(make_production_mesh(multi_pod=False))
+        shapes.append(make_production_mesh(multi_pod=False))
     if args.both_meshes or args.multi_pod:
-        meshes.append(make_production_mesh(multi_pod=True))
+        shapes.append(make_production_mesh(multi_pod=True))
 
     records = []
     t_all = time.time()
-    for arch, shape, skip in cells(args.arch):
-        if args.shape and shape != args.shape:
-            continue
-        if skip:
-            rec = {"arch": arch, "shape": shape, "status": "skip", "reason": skip}
-            print(f"[dryrun] {arch} × {shape}: SKIP ({skip})")
-            records.append(rec)
-            continue
-        flops = None
-        for mesh in meshes:
-            try:
-                records.append(run_cell(arch, shape, mesh, flops=flops))
-                flops = records[-1]["flops"]
-            except Exception as e:  # a failure here is a bug in the system
-                traceback.print_exc()
-                records.append({
-                    "arch": arch, "shape": shape, "mesh": "x".join(map(str, mesh.shape)),
-                    "status": "fail", "error": f"{type(e).__name__}: {e}"})
+    with fake_process_group(max(math.prod(m.shape) for m in shapes)):
+        meshes = [fake_mesh(m.shape, m.axis_names) for m in shapes]
+        for arch, shape, skip in cells(args.arch):
+            if args.shape and shape != args.shape:
+                continue
+            if skip:
+                rec = {"arch": arch, "shape": shape, "status": "skip", "reason": skip}
+                print(f"[dryrun] {arch} × {shape}: SKIP ({skip})")
+                records.append(rec)
+                continue
+            for mesh in meshes:
+                try:
+                    records.append(run_cell(arch, shape, mesh))
+                except Exception as e:  # a failure here is a bug in the system
+                    traceback.print_exc()
+                    records.append({
+                        "arch": arch, "shape": shape, "mesh": "x".join(map(str, mesh.shape)),
+                        "status": "fail", "error": f"{type(e).__name__}: {e}"})
     if args.out:
         with open(args.out, "a") as f:
             for r in records:

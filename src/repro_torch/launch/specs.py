@@ -1,27 +1,34 @@
 """Meta-device stand-ins and sharding specs for every dry-run cell: the
 counterpart of ``repro/launch/specs.py``.
 
-``step_and_specs(arch, shape, mesh)`` returns (fn, args, specs):
+``step_and_specs(arch, shape, mesh)`` returns (fn, args, specs, policy):
 ``fn(*args)`` runs the cell's step (a training step, a prefill or encode,
 a decode step) on meta tensors, which have shapes and dtypes and no
-memory, and ``specs`` holds the fitted :class:`P` of every argument on
+memory; ``specs`` holds the fitted :class:`P` of every argument on
 ``mesh`` (a ``DeviceMesh`` or a ``ShapeMesh``: only names and sizes are
-read).  ``repro`` lowers the same step with ``jax.jit`` under the cell's
-activation policy; the port runs it on the meta device
-(``launch/dryrun.py``), on plain tensors, where a policy constrains
-nothing, so it returns none.
+read), and ``policy`` is the cell's activation policy.  ``repro`` lowers
+the same step with ``jax.jit`` under that policy; the port places the
+arguments on a ``DeviceMesh`` (:func:`distribute_args`, as
+``train_loop(mesh=...)`` places them) and runs the step under it
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.configs import SHAPES, get_config
-from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ShapesOnly
-from repro_torch.models.sharding import P, params_sharding_tree
+from repro_torch.models.sharding import (
+    P,
+    batch_axes,
+    cache_sharding_tree,
+    distribute_params,
+    make_activation_policy,
+    params_sharding_tree,
+    placements,
+)
 from repro_torch.models.transformer import (
     decode_step,
     forward,
@@ -31,11 +38,11 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.step import make_train_step
-from repro_torch.train.tree import map_with_path
 
 META = torch.device("meta")
 
-__all__ = ["params_specs", "opt_specs", "batch_specs", "cache_specs", "step_and_specs"]
+__all__ = ["params_specs", "opt_specs", "batch_specs", "cache_specs", "step_and_specs",
+           "distribute_args"]
 
 
 def params_specs(cfg: ModelConfig):
@@ -48,18 +55,11 @@ def opt_specs(params):
     return init_opt_state(params)
 
 
-def _batch_axis_spec(mesh, global_batch: int):
-    dp = dp_axes(mesh)
-    sizes = axis_sizes(mesh)
-    dp_size = math.prod(sizes[a] for a in dp)
-    return dp if global_batch % dp_size == 0 else None
-
-
 def batch_specs(cfg: ModelConfig, shape_name: str, mesh):
     """(batch of meta tensors, its specs) for a train/prefill batch."""
     spec = SHAPES[shape_name]
     b, l = spec.global_batch, spec.seq_len
-    dp = _batch_axis_spec(mesh, b)
+    dp = batch_axes(mesh, b)
     i32, f32 = torch.int32, torch.float32
     batch: dict = {"labels": torch.empty((b, l), dtype=i32, device=META)}
     specs: dict = {"labels": P(dp, None)}
@@ -77,40 +77,25 @@ def batch_specs(cfg: ModelConfig, shape_name: str, mesh):
 
 
 def cache_specs(cfg: ModelConfig, shape_name: str, mesh):
-    """(decode cache of meta tensors, its specs): the KV sequence axis on
-    ``model`` (context-parallel decode) where it divides."""
+    """(decode cache of meta tensors, its specs): ``cache_sharding_tree``'s
+    layout, the KV sequence axis on ``model`` (context-parallel decode)
+    where it divides."""
     spec = SHAPES[shape_name]
     b, s = spec.global_batch, spec.seq_len
     cache = init_cache(cfg, b, s, device=META)
-    dp = _batch_axis_spec(mesh, b)
-    tp = "model" if "model" in axis_names(mesh) else None
-    tp_size = axis_sizes(mesh).get("model", 1)
-
-    def shard_one(name, leaf):
-        if name in ("k", "v"):
-            # (L, B, S, Hkv, dh): sequence on model (context-parallel).
-            tp_ok = tp if leaf.shape[2] % max(tp_size, 1) == 0 else None
-            return P(None, dp, tp_ok, None, None)
-        if name.startswith("cross_"):
-            return P(None, dp, None, None, None)
-        if name == "ssm/s":
-            return P(None, dp, tp if cfg.shard_ssm_heads else None, None, None)
-        if name == "ssm/conv":
-            return P(None, dp, None, None)
-        return P()  # length scalar
-
-    return cache, map_with_path(shard_one, cache)
+    return cache, cache_sharding_tree(cache, cfg, mesh, b)
 
 
 def step_and_specs(arch: str, shape_name: str, mesh, *,
                    opt_cfg: OptimizerConfig | None = None, cfg=None):
-    """(fn, args, specs) for one dry-run cell.
+    """(fn, args, specs, policy) for one dry-run cell.
 
     ``cfg`` overrides the registry config (variants: remat policy, chunk
     sizes, moe_impl)."""
     cfg = cfg or get_config(arch)
     spec = SHAPES[shape_name]
     dp = dp_axes(mesh)
+    policy = make_activation_policy(mesh, cfg, dp=dp)
     params = params_specs(cfg)
     p_specs = params_sharding_tree(params, cfg, mesh, dp=dp)
 
@@ -119,7 +104,7 @@ def step_and_specs(arch: str, shape_name: str, mesh, *,
         o_specs = {"m": p_specs, "v": p_specs, "step": P()}
         batch, b_specs = batch_specs(cfg, shape_name, mesh)
         return (make_train_step(cfg, opt_cfg or OptimizerConfig()), (params, opt_state, batch),
-                (p_specs, o_specs, b_specs))
+                (p_specs, o_specs, b_specs), policy)
 
     if spec.kind == "prefill":
         batch, b_specs = batch_specs(cfg, shape_name, mesh)
@@ -133,21 +118,42 @@ def step_and_specs(arch: str, shape_name: str, mesh, *,
             def encode(params, batch):
                 return forward(params, cfg, batch["tokens"], img=img_of(batch),
                                frames=batch.get("frames"))
-            return encode, (params, batch), (p_specs, b_specs)
+            return encode, (params, batch), (p_specs, b_specs), policy
 
         def prefill_step(params, batch):
             return prefill(params, cfg, batch["tokens"], img=img_of(batch),
                            frames=batch.get("frames"))
 
-        return prefill_step, (params, batch), (p_specs, b_specs)
+        return prefill_step, (params, batch), (p_specs, b_specs), policy
 
     # decode
     cache, c_specs = cache_specs(cfg, shape_name, mesh)
     b = spec.global_batch
     token = torch.empty((b, 1), dtype=torch.int32, device=META)
-    t_spec = P(_batch_axis_spec(mesh, b), None)
+    t_spec = P(batch_axes(mesh, b), None)
 
     def serve_step(params, token, cache):
         return decode_step(params, cfg, token, cache)
 
-    return serve_step, (params, token, cache), (p_specs, t_spec, c_specs)
+    return serve_step, (params, token, cache), (p_specs, t_spec, c_specs), policy
+
+
+def distribute_args(args, specs, mesh):
+    """A cell's meta arguments as DTensors on the ``DeviceMesh`` ``mesh``,
+    placed as ``train_loop(mesh=...)`` places them: the parameters by their
+    fitted specs (``distribute_params``), ``m`` and ``v`` zeros like the
+    placed parameters and ``step`` a plain scalar (``init_opt_state``), and
+    every other tensor (the batch, the token, the cache) by its spec."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if x is None:
+            return None
+        return distribute_tensor(x, mesh, placements(spec, mesh), src_data_rank=None)
+
+    params = distribute_params(args[0], specs[0], mesh)
+    if isinstance(args[1], dict) and "m" in args[1]:       # a training step's state
+        return params, opt_specs(params), place(args[2], specs[2])
+    return (params, *(place(a, s) for a, s in zip(args[1:], specs[1:])))

@@ -27,7 +27,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import batch_split, shard_activation
+from repro_torch.models.sharding import (
+    batch_split,
+    on_local_heads,
+    shard_activation,
+    split_heads,
+)
 
 Params = dict[str, Any]
 
@@ -86,9 +91,12 @@ def _gqa_out(p, v):
 
 
 def attention_dense(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0):
-    q, k, v = batch_split(q), batch_split(k), batch_split(v)
+    return on_local_heads(_dense, q, k, v, q_pos, k_pos, causal=causal, window=window)
+
+
+def _dense(q, k, v, q_pos, k_pos, *, causal: bool, window: int):
     s = _gqa_scores(q, k) + _mask_bias(q_pos, k_pos, causal=causal, window=window)
-    return batch_split(_gqa_out(torch.softmax(s, dim=-1), v))
+    return _gqa_out(torch.softmax(s, dim=-1), v)
 
 
 class _AttnCore(torch.autograd.Function):
@@ -142,7 +150,12 @@ def attention_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
                       q_chunk: int = 4096, k_chunk: int = 1024):
     """Flash-style attention: outer loop over Q chunks, inner online-softmax
     loop over KV chunks.  Exact (fp32 accumulators)."""
-    q, k, v = batch_split(q), batch_split(k), batch_split(v)
+    return on_local_heads(_chunked, q, k, v, q_pos, k_pos, causal=causal, window=window,
+                          q_chunk=q_chunk, k_chunk=k_chunk)
+
+
+def _chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int, q_chunk: int,
+             k_chunk: int):
     b, lq, hq, dh = q.shape
     lk = k.shape[1]
     q_chunk = min(q_chunk, lq)
@@ -167,7 +180,7 @@ def attention_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0,
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.transpose(1, 2).to(q.dtype))            # (B, qc, Hq, dh)
-    return batch_split(torch.cat(outs, dim=1))
+    return torch.cat(outs, dim=1)
 
 
 def attention_decode(q, k_cache, v_cache, length, *, window: int = 0):
@@ -176,15 +189,59 @@ def attention_decode(q, k_cache, v_cache, length, *, window: int = 0):
     The current token's k/v must already be written at ``length - 1``;
     positions ``< length`` are attended (minus the sliding window).
     ``length`` may be a tensor on the device: nothing here reads it on the
-    host.
+    host.  On a mesh (a DTensor cache) see :func:`_decode_on_mesh`.
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(k_cache, DTensor):
+        return _decode_on_mesh(q, k_cache, v_cache, length, window)
     s = _gqa_scores(q, k_cache)                        # (B, Hq, 1, S)
-    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    s = s + _decode_bias(torch.arange(k_cache.shape[1], device=q.device), length, window)
+    return _gqa_out(torch.softmax(s, dim=-1), v_cache)
+
+
+def _decode_bias(k_pos, length, window: int):
     ok = k_pos < length
     if window:
         ok &= k_pos > length - 1 - window
-    s = s + torch.where(ok, 0.0, NEG_INF)[None, None, None]
-    return _gqa_out(torch.softmax(s, dim=-1), v_cache)
+    return torch.where(ok, 0.0, NEG_INF)[None, None, None]
+
+
+def _decode_on_mesh(q, k_cache, v_cache, length, window: int):
+    """:func:`attention_decode` where the cache keeps its layout on the mesh
+    (the sequence split on ``model``: context-parallel decode): each rank
+    scores the query, every head, against its own cache positions, and the
+    softmax's max, its sum and the weighted values are reduced over the
+    ranks that split the sequence (flash-decoding's combine; the sum of the
+    weighted values in float32).  Returns a DTensor split like the cache's
+    batch."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, place = k_cache.device_mesh, list(k_cache.placements)
+    seq = [(mesh, i) for i, p in enumerate(place) if p == Shard(1)]
+    q_place = [Replicate() if p == Shard(1) else p for p in place]
+    ql = q.redistribute(mesh, q_place).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(k_cache.shape, mesh, place)
+    if isinstance(length, DTensor):
+        length = length.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    k_pos = offset[1] + torch.arange(kl.shape[1], device=kl.device)
+    s = _gqa_scores(ql, kl) + _decode_bias(k_pos, length, window)   # (B, Hq, 1, S_loc)
+    m = s.amax(dim=-1, keepdim=True)
+    for group in seq:
+        m = all_reduce(m, "max", group)
+    p = torch.exp(s - m)
+    total = p.sum(dim=-1)                                            # (B, Hq, 1)
+    o = _gqa_out(p, vl).float()                                      # (B, 1, Hq, dh)
+    for group in seq:
+        total = all_reduce(total, "sum", group)
+        o = all_reduce(o, "sum", group)
+    o = (o / total.transpose(1, 2)[..., None]).to(vl.dtype)
+    shape = tuple(q.shape)
+    stride = (shape[1] * shape[2] * shape[3], shape[2] * shape[3], shape[3], 1)
+    return DTensor.from_local(o, mesh, q_place, run_check=False, shape=shape, stride=stride)
 
 
 # ---------------------------------------------------------------------------
@@ -231,16 +288,13 @@ def init_attn(gen: torch.Generator, cfg, *, layers: int, dtype: torch.dtype) -> 
 
 def qkv_project(p, x, cfg, positions, *, rope_on: bool = True):
     """x: (B, L, D) -> q (B,L,Hq,dh), k/v (B,L,Hkv,dh) with RoPE + qk-norm."""
-    b, l, _ = x.shape
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, l, hq, dh)
-    k = k.reshape(b, l, hkv, dh)
-    v = v.reshape(b, l, hkv, dh)
+    q, k, v = split_heads(q, hq), split_heads(k, hkv), split_heads(v, hkv)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Any
 
@@ -39,7 +40,11 @@ _ctx = threading.local()
 __all__ = ["P", "ActivationPolicy", "set_policy", "get_policy", "use_policy",
            "shard_activation", "make_activation_policy", "param_spec",
            "params_sharding_tree", "placements", "distribute_params", "shard_params",
-           "batch_split", "replicated"]
+           "batch_split", "replicated", "keep_grad_split", "even_split", "split_columns",
+           "split_heads",
+           "on_local_heads",
+           "batch_axes", "batch_placements",
+           "cache_sharding_tree", "zeros_placed"]
 
 
 class P(tuple):
@@ -135,10 +140,19 @@ def shard_activation(x, kind: str):
     return x.redistribute(x.device_mesh, placements(spec, pol.mesh))
 
 
-def _batch_only(x):
+def batch_placements(x) -> list:
+    """``x``'s placements with only its batch split kept: ``Shard(0)`` where
+    ``x`` has it, ``Replicate()`` elsewhere.  A batch of one row splits over
+    nothing: DTensor's view rules drop a dim of size 1 and refuse to drop a
+    split one."""
     from torch.distributed.tensor import Replicate, Shard
 
-    want = [p if p == Shard(0) else Replicate() for p in x.placements]
+    split = x.shape[0] > 1
+    return [p if p == Shard(0) and split else Replicate() for p in x.placements]
+
+
+def _batch_only(x):
+    want = batch_placements(x)
     return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
 
 
@@ -160,12 +174,13 @@ def batch_split(x):
     too: every other split gathered and every partial sum reduced; a plain
     tensor as it is.
 
-    The operands and results of the grouped attention products and of the
-    MoE's token flatten take it: DTensor's view rules (torch 2.11) refuse
-    to flatten an axis split on the mesh unless it leads the flattened
-    group, so the sequence and head axes are made whole first, forward and
-    backward, as ``repro``'s ``shard_activation`` makes a placement
-    explicit."""
+    Each block section, the MoE's token flatten, and the attention and the
+    SSD where their heads do not split on ``model`` take it (elsewhere they
+    run on each rank's heads: :func:`on_local_heads`): DTensor's view rules
+    (torch 2.11) refuse to flatten an axis split on the mesh unless it leads
+    the flattened group, so the sequence and head axes are made whole first,
+    forward and backward, as ``repro``'s ``shard_activation`` makes a
+    placement explicit."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
@@ -184,6 +199,128 @@ def replicated(x):
     if not isinstance(x, DTensor) or all(p == Replicate() for p in x.placements):
         return x
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+class _GradLikeValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.place = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.place)
+
+
+def keep_grad_split(t, dim: int):
+    """``t``; where it is a DTensor split on dim ``dim``, its gradient is
+    brought back to ``t``'s placements on the way back.  Without it the
+    gated SSM's gradient of ``z`` comes back split by batch or sequence on
+    ``model``; on a mesh of three axes, with a few rows a rank, that reaches
+    the product's weight gradient as a strided split of the tokens, which
+    DTensor's product rule gathers: every ``model`` rank computed the whole
+    weight gradient."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor) or Shard(dim) not in t.placements:
+        return t
+    return _GradLikeValue.apply(t)
+
+
+def even_split(t, dim: int, n: int):
+    """``t`` with its split of dim ``dim`` kept over the mesh axes whose
+    sizes divide ``n`` (the count of heads the dim holds) and gathered over
+    the rest; a plain tensor as it is.  DTensor flattens and unflattens a
+    split dim only where the split lands evenly on its leading part."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh, parts, want = t.device_mesh, 1, list(t.placements)
+    for i, p in enumerate(want):
+        if p == Shard(dim):
+            if n % (parts * mesh.size(i)):
+                want[i] = Replicate()
+            else:
+                parts *= mesh.size(i)
+    return t if want == list(t.placements) else t.redistribute(mesh, want)
+
+
+def split_columns(w, n: int):
+    """``w.split(n, dim=-1)``; on a mesh each part split over the mesh axes
+    that split ``w``'s last dim, so that a product with it stays split by
+    columns, forward and backward (the parts of a split dim lie on other
+    ranks than the whole's: ``w`` is gathered on those axes and each part
+    cut again there, which moves the weight instead of the product)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(w, DTensor):
+        return w.split(n, dim=-1)
+    mesh, place, d = w.device_mesh, list(w.placements), w.ndim - 1
+    whole = [Replicate() if p == Shard(d) else p for p in place]
+    return tuple(t.redistribute(mesh, place)
+                 for t in w.redistribute(mesh, whole).split(n, dim=-1))
+
+
+def split_heads(t, n: int):
+    """``t`` (B, L, n·dh) viewed as (B, L, n, dh), split only as evenly as
+    ``n`` heads allow (:func:`even_split`)."""
+    b, l, _ = t.shape
+    return even_split(t, 2, n).reshape(b, l, n, -1)
+
+
+def on_local_heads(fn, q, k, v, *args, **kwargs):
+    """``fn(q, k, v, *args, **kwargs)`` -> (B, Lq, Hq, dh), an attention over
+    (B, L, H, dh) operands, run where each rank holds its heads, as
+    ``repro``'s partitioner keeps the heads on ``model``.
+
+    Plain tensors: ``fn`` itself.  DTensors: each rank runs ``fn`` on plain
+    local shards, the batch split as ``q``'s (:func:`batch_split`) and the
+    q heads split on ``model``; k and v split alike where their heads
+    divide, else whole on ``model`` and cut to the one kv head that the
+    rank's q heads share (their gradient a partial sum over ``model``).
+    The result is a DTensor split the same way.  Where the heads do not
+    split so (no ``model`` axis, q heads not divisible, a rank's q heads
+    across two kv groups, the batch already on ``model``), every rank
+    runs ``fn`` on DTensors with only the batch split, every head
+    gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, *args, **kwargs)
+    mesh = q.device_mesh
+    names = axis_names(mesh)
+    base = batch_placements(q)
+    hq, hkv = q.shape[2], k.shape[2]
+    m = names.index("model") if "model" in names else None
+    ntp = 1 if m is None else mesh.size(m)
+    hl = hq // ntp
+    group = hq // hkv
+    if (ntp == 1 or base[m] != Replicate() or hq % ntp
+            or not (hkv % ntp == 0 or group % hl == 0)):
+        q, k, v = batch_split(q), batch_split(k), batch_split(v)
+        return batch_split(fn(q, k, v, *args, **kwargs))
+
+    heads = list(base)
+    heads[m] = Shard(2)
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        if hkv % ntp == 0:
+            return t.redistribute(mesh, heads).to_local(grad_placements=heads)
+        # The rank's q heads share one kv head: the whole k (v) on model,
+        # cut to it; each rank's gradient is a part of the whole one.
+        grads = list(base)
+        grads[m] = Partial()
+        lo = mesh.get_local_rank(m) * hl // group
+        return t.redistribute(mesh, base).to_local(grad_placements=grads)[:, :, lo:lo + 1]
+
+    o = fn(q.redistribute(mesh, heads).to_local(grad_placements=heads), local(k), local(v),
+           *args, **kwargs).contiguous()
+    shape = (q.shape[0], q.shape[1], hq, o.shape[3])
+    stride = (shape[1] * shape[2] * shape[3], shape[2] * shape[3], shape[3], 1)
+    return DTensor.from_local(o, mesh, heads, run_check=False, shape=shape, stride=stride)
 
 
 def placements(spec: P, mesh) -> list:
@@ -332,6 +469,51 @@ def params_sharding_tree(params_shape, cfg, mesh, *, dp=("data",), tp="model"):
         return _fit(spec, tuple(leaf.shape))
 
     return map_with_path(one, params_shape)
+
+
+def batch_axes(mesh, batch: int):
+    """The data-parallel axes (``pod``, ``data``) for a batch of ``batch``
+    rows: all of them where they split it evenly, else None."""
+    dp = tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+    sizes = axis_sizes(mesh)
+    return dp if batch % math.prod(sizes[a] for a in dp) == 0 else None
+
+
+def cache_sharding_tree(cache, cfg, mesh, batch: int):
+    """The :class:`P` of every leaf of a decode cache (``init_cache``'s) of
+    ``batch`` rows: the KV sequence axis on ``model`` (context-parallel
+    decode) where it divides, the SSM heads on ``model`` where the config
+    shards them, the batch on the data axes where it divides."""
+    dp = batch_axes(mesh, batch)
+    tp = "model" if "model" in axis_names(mesh) else None
+    tp_size = axis_sizes(mesh).get("model", 1)
+
+    def one(name, leaf):
+        if name in ("k", "v"):
+            # (L, B, S, Hkv, dh): sequence on model (context-parallel).
+            tp_ok = tp if leaf.shape[2] % max(tp_size, 1) == 0 else None
+            return P(None, dp, tp_ok, None, None)
+        if name.startswith("cross_"):
+            return P(None, dp, None, None, None)
+        if name == "ssm/s":
+            return P(None, dp, tp if cfg.shard_ssm_heads else None, None, None)
+        if name == "ssm/conv":
+            return P(None, dp, None, None)
+        return P()  # length scalar
+
+    return map_with_path(one, cache)
+
+
+def zeros_placed(t, spec: P, mesh, device):
+    """Zeros shaped like ``t`` as a DTensor on ``mesh`` placed by ``spec``:
+    each rank allocates its own shard only."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    place = placements(spec, mesh)
+    local, _ = compute_local_shape_and_global_offset(t.shape, mesh, place)
+    return DTensor.from_local(torch.zeros(local, dtype=t.dtype, device=device), mesh, place,
+                              run_check=False, shape=t.shape, stride=t.stride())
 
 
 def distribute_params(tree, specs, mesh):

@@ -21,6 +21,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, _normal, rms_norm
+from repro_torch.launch.mesh import axis_names
+from repro_torch.models.sharding import (
+    batch_placements,
+    batch_split,
+    even_split,
+    keep_grad_split,
+    replicated,
+    split_columns,
+)
 
 
 def init_ssm(gen: torch.Generator, cfg, *, layers: int, dtype: torch.dtype) -> Params:
@@ -70,15 +79,25 @@ def ssm_apply(p, x, cfg):
         # End-pad to a chunk multiple (causal: pads never affect real rows).
         x = F.pad(x, (0, 0, 0, q - l_in % q))
         return ssm_apply(p, x, cfg)[:, :l_in]
-    b, l, _ = x.shape
-    di, n, hd, h = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_heads
-    nc = l // q
+    di, hd = cfg.ssm_inner, cfg.ssm_head_dim
 
-    xs, z = (x @ p["in_xz"]).split(di, dim=-1)              # (B, L, di)
+    xs, z = (keep_grad_split(x @ w, 2) for w in split_columns(p["in_xz"], di))  # (B, L, di)
     bs = _causal_conv(x @ p["in_b"], p["conv_b"])            # (B, L, N)
     cs = _causal_conv(x @ p["in_c"], p["conv_c"])            # (B, L, N)
     xs = _causal_conv(xs, p["conv_x"])                       # (B, L, di)
     dt, dta = _step_sizes(p, x)                              # (B, L, H) fp32
+
+    y = _ssd_on_mesh(xs, bs, cs, dt, dta, p["d_skip"], q, hd)   # (B, L, di)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return y @ p["out"]
+
+
+def _ssd(xs, bs, cs, dt, dta, d_skip, q: int, hd: int):
+    """The chunked dual form over ``xs`` (B, L, H·hd), ``bs``, ``cs`` (B, L,
+    N), ``dt``, ``dta`` (B, L, H) and ``d_skip`` (H,), with the skip term:
+    (B, L, H·hd)."""
+    b, l, h = dt.shape
+    n, nc = bs.shape[2], l // q
 
     # Chunk views.
     xh = xs.reshape(b, nc, q, h, hd)
@@ -89,7 +108,7 @@ def ssm_apply(p, x, cfg):
 
     # Within-chunk (diagonal) term: quadratic, attention-like.
     seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]    # (B,nc,Q,Q,H) log decay i>=j
-    li = torch.arange(q, device=x.device)
+    li = torch.arange(q, device=xs.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
     decay = torch.where(causal, torch.exp(seg), 0.0)         # (B,nc,Q,Q,H)
     del seg
@@ -104,7 +123,7 @@ def ssm_apply(p, x, cfg):
     # Each chunk's state: sum_s exp(cum_last - cum_s) dt_s x_s B_s^T.
     rdec = torch.exp(cums[:, :, -1:, :] - cums) * dtc        # (B,nc,Q,H)
     state_c = torch.einsum("bcqh,bcqhp,bcqn->bchpn", rdec.to(xh.dtype), xh, bc)
-    s = torch.zeros((b, h, hd, n), dtype=torch.float32, device=x.device)
+    s = torch.zeros((b, h, hd, n), dtype=torch.float32, device=xs.device)
     s_before = []
     for c in range(nc):
         s_before.append(s)
@@ -117,9 +136,48 @@ def ssm_apply(p, x, cfg):
                          into.to(cc.dtype))
 
     y = (y_diag + y_off).reshape(b, l, h, hd)
-    y = y + xh.reshape(b, l, h, hd) * p["d_skip"].to(y.dtype).reshape(1, 1, h, 1)
-    y = rms_norm(y.reshape(b, l, di) * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out"]
+    y = y + xh.reshape(b, l, h, hd) * d_skip.to(y.dtype).reshape(1, 1, h, 1)
+    return y.reshape(b, l, h * hd)
+
+
+def _ssd_on_mesh(xs, bs, cs, dt, dta, d_skip, q: int, hd: int):
+    """:func:`_ssd`; on a mesh, run where each rank holds its heads, as
+    ``repro``'s partitioner keeps the SSM heads on ``model``: plain local
+    shards, the batch split as ``xs``'s, ``xs``, ``dt``, ``dta`` and
+    ``d_skip`` split by heads on ``model``, ``bs`` and ``cs`` whole there
+    (their gradient a partial sum over ``model``, ``d_skip``'s over the
+    batch's axes).  Where the heads do not divide, every rank runs it on
+    DTensors with only the batch split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(xs, DTensor):
+        return _ssd(xs, bs, cs, dt, dta, d_skip, q, hd)
+    mesh = xs.device_mesh
+    names = axis_names(mesh)
+    base = batch_placements(xs)
+    m = names.index("model") if "model" in names else None
+    h = dt.shape[2]
+    if m is None or mesh.size(m) == 1 or base[m] != Replicate() or h % mesh.size(m):
+        xs, bs, cs, dt, dta = (batch_split(t) for t in (xs, bs, cs, dt, dta))
+        return batch_split(_ssd(xs, bs, cs, dt, dta, replicated(d_skip), q, hd))
+    heads = list(base)
+    heads[m] = Shard(2)
+    shared = [Partial() if i == m else p for i, p in enumerate(base)]
+    per_head = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+    per_head_grad = [Shard(0) if i == m else Partial() if p == Shard(0) else Replicate()
+                     for i, p in enumerate(base)]
+
+    def local(t, place, grad):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, place).to_local(grad_placements=grad)
+
+    y = _ssd(local(xs, heads, heads), local(bs, base, shared), local(cs, base, shared),
+             local(dt, heads, heads), local(dta, heads, heads),
+             local(d_skip, per_head, per_head_grad), q, hd)
+    shape = tuple(xs.shape)
+    return DTensor.from_local(y.contiguous(), mesh, heads, run_check=False, shape=shape,
+                              stride=(shape[1] * shape[2], shape[2], 1))
 
 
 def ssm_decode(p, x, state, cfg):
@@ -139,12 +197,14 @@ def ssm_decode(p, x, state, cfg):
     xs, bs, cs = conv_out.split([di, n, n], dim=-1)
 
     dt, dta = _step_sizes(p, x)                              # (B, 1, H)
-    xh = xs.reshape(b, h, hd)
-    s_new = state["s"] * torch.exp(dta[:, 0])[..., None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt[:, 0].to(xh.dtype), xh, bs[:, 0]).float()
+    # On a mesh the heads stay split only where they divide.
+    dt, dta = even_split(dt, 2, h), even_split(dta, 2, h)
+    xh = even_split(xs, 2, h).reshape(b, h, hd)
+    s_new = even_split(state["s"], 1, h) * torch.exp(dta[:, 0])[..., None, None] \
+        + torch.einsum("bh,bhp,bn->bhpn", dt[:, 0].to(xh.dtype), xh, bs[:, 0]).float()
     y = torch.einsum("bn,bhpn->bhp", cs[:, 0], s_new.to(cs.dtype))
     y = y + xh * p["d_skip"][:, None].to(y.dtype)
-    y = rms_norm(y.reshape(b, 1, di) * F.silu(z), p["norm"], cfg.norm_eps)
+    y = rms_norm(even_split(y, 1, h).reshape(b, 1, di) * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out"], {"conv": conv_hist[:, 1:], "s": s_new}
 
 

@@ -33,7 +33,10 @@ as DTensors on a ``DeviceMesh``) the residual stream and the logits carry
 ``repro``'s constraints; each block section and the LM head take their
 input with the sequence gathered and the batch split (``batch_split``, the
 Megatron-SP shape of ``repro``'s "block_compute"), which DTensor's view
-rules need before a product; and ``_moe_dispatch`` picks the MoE's engine as
+rules need before a product; attention and the SSD run on each rank's
+heads (``on_local_heads``, ``ssm.py``), and decode keeps the cache's
+sequence split (``_decode_on_mesh``, ``_write_slot``); and
+``_moe_dispatch`` picks the MoE's engine as
 ``repro``'s does: ``moe_apply_shard_map`` for ``moe_impl="shard_map"``
 where the mesh divides the batch, the sequence and the experts, else
 ``moe_apply`` partitioned by DTensor.  Without a policy every constraint is
@@ -69,11 +72,15 @@ from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.moe import init_moe, moe_apply, moe_apply_shard_map
 from repro_torch.models.sharding import (
     batch_split,
+    cache_sharding_tree,
     get_policy,
     replicated,
     shard_activation,
+    split_heads,
     use_policy,
+    zeros_placed,
 )
+from repro_torch.train.tree import tree_map
 from repro_torch.models.ssm import (
     init_ssm,
     init_ssm_state,
@@ -307,9 +314,8 @@ def _scan_blocks(cfg, x, blocks, positions, layers, *, on_layer=None):
 
 def _cross_kv(cfg: ModelConfig, cp, img):
     """A cross-attention layer's keys and values over the image embeddings."""
-    shape = (img.shape[0], img.shape[1], cfg.n_kv_heads, cfg.head_dim)
-    return ((img @ cp["attn"]["wk"]).reshape(shape),
-            (img @ cp["attn"]["wv"]).reshape(shape))
+    return (split_heads(img @ cp["attn"]["wk"], cfg.n_kv_heads),
+            split_heads(img @ cp["attn"]["wv"], cfg.n_kv_heads))
 
 
 def _cross_block(cfg: ModelConfig, x, cp, k, v):
@@ -317,7 +323,7 @@ def _cross_block(cfg: ModelConfig, x, cp, k, v):
     ``k``, ``v`` from the image (``_cross_kv``); no RoPE, no mask."""
     h = rms_norm(x, cp["ln"], cfg.norm_eps)
     b, l, _ = h.shape
-    q = (h @ cp["attn"]["wq"]).reshape(b, l, cfg.n_heads, cfg.head_dim)
+    q = split_heads(h @ cp["attn"]["wq"], cfg.n_heads)
     o = attention_dense(q, k, v, torch.arange(l, device=x.device),
                         torch.arange(k.shape[1], device=x.device), causal=False)
     return x + o.reshape(b, l, -1) @ cp["attn"]["wo"]
@@ -413,6 +419,54 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> 
     return cache
 
 
+def _write_slot(cache_t, slot, new) -> None:
+    """``cache_t[:, slot] = new`` in place (``slot`` a one-element index).
+    On a mesh each rank writes into its own shard of the cache: where its
+    part of the sequence holds the slot, the new row, else the row it
+    has."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if not isinstance(cache_t, DTensor):
+        cache_t.index_copy_(1, slot, new)
+        return
+    mesh, place = cache_t.device_mesh, list(cache_t.placements)
+    local = cache_t.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache_t.shape, mesh, place)
+    new = new.redistribute(mesh, [p if p == Shard(0) else Replicate() for p in place]).to_local()
+    if isinstance(slot, DTensor):
+        slot = slot.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    at = slot - offset[1]
+    inside = (at >= 0) & (at < local.shape[1])
+    at = at.clamp(0, local.shape[1] - 1)
+    local.index_copy_(1, at, torch.where(inside, new, local.index_select(1, at)))
+
+
+def _write_layer(cache_t, i: int, new) -> None:
+    """``cache_t[i, :, :n] = new`` in place (``n = new.shape[1]``).  On a
+    mesh each rank writes into its own shard of the cache the part of
+    ``new`` that falls in it (DTensor would write a slice of a split dim
+    into a gathered copy)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    n = new.shape[1]
+    if not isinstance(cache_t, DTensor):
+        cache_t[i, :, :n] = new
+        return
+    mesh, place = cache_t.device_mesh, list(cache_t.placements)
+    local = cache_t.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache_t.shape, mesh, place)
+    # new's dims split as the cache's, but the one written in part: whole.
+    want = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim not in (0, 2) else Replicate()
+            for p in place]
+    new = new.redistribute(mesh, want).to_local()
+    lo = offset[2]
+    hi = min(lo + local.shape[2], n)
+    if lo < hi:
+        local[i, :, :hi - lo] = new[:, lo:hi]
+
+
 def _decode_block(cfg, x, bp, cache, i, length):
     """Block ``i``, one token; writes the token's k/v and the new SSM state
     into layer i of the cache tensors in place."""
@@ -425,8 +479,8 @@ def _decode_block(cfg, x, bp, cache, i, length):
         s = k_cache.shape[1]
         # repro's dynamic_update_slice clamps the slot into the buffer.
         slot = torch.remainder(pos, s) if cfg.sliding_window else pos.clamp(0, s - 1)
-        k_cache.index_copy_(1, slot.long(), k)
-        v_cache.index_copy_(1, slot.long(), v)
+        _write_slot(k_cache, slot.long(), k)
+        _write_slot(v_cache, slot.long(), v)
         if cfg.sliding_window:
             # Rolling buffer: every slot < length is valid; window == size.
             o = attention_decode(q, k_cache, v_cache, torch.clamp(length, max=s))
@@ -436,8 +490,8 @@ def _decode_block(cfg, x, bp, cache, i, length):
     if cfg.has_ssm:
         st = cache["ssm"]
         y, new = ssm_decode(bp["ssm"], h, {"conv": st["conv"][i], "s": st["s"][i]}, cfg)
-        st["conv"][i] = new["conv"]
-        st["s"][i] = new["s"]
+        _write_layer(st["conv"], i, new["conv"])
+        _write_layer(st["s"], i, new["s"])
         delta = (delta + y) * _ssm_scale(cfg)
     x, _ = _ffn(cfg, x + delta, bp, dropless=True)   # decode: no drops
     return x
@@ -459,7 +513,7 @@ def decode_step(params: Params, cfg: ModelConfig, token, cache):
         if cross:
             cp = cross[g]
             h = rms_norm(x, cp["ln"], cfg.norm_eps)
-            q = (h @ cp["attn"]["wq"]).reshape(x.shape[0], 1, cfg.n_heads, cfg.head_dim)
+            q = split_heads(h @ cp["attn"]["wq"], cfg.n_heads)
             o = attention_decode(q, cache["cross_k"][g], cache["cross_v"][g],
                                  cfg.vision_seq)
             x = x + o.reshape(x.shape[0], 1, -1) @ cp["attn"]["wo"]
@@ -483,8 +537,18 @@ def prefill(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None,
     max_len = max_len or l
     # As in repro, a prompt longer than a full-attention cache keeps every
     # position.
-    cache = init_cache(cfg, b, max_len if cfg.sliding_window else max(max_len, l),
-                       device=dev)
+    size = max_len if cfg.sliding_window else max(max_len, l)
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        # On a mesh: the cache laid out as a decode step takes it, each rank
+        # allocating its shards.
+        mesh = x.device_mesh
+        meta = init_cache(cfg, b, size, device="meta")
+        cache = tree_map(lambda t, s: zeros_placed(t, s, mesh, dev), meta,
+                         cache_sharding_tree(meta, cfg, mesh, b))
+    else:
+        cache = init_cache(cfg, b, size, device=dev)
     rolling = cfg.has_attention and bool(cfg.sliding_window) and l > cache["k"].shape[2]
     if rolling:
         # Keep the last `s` positions in rolling order (slot = pos % s).
@@ -497,11 +561,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None,
         if k is not None:
             if rolling:
                 k, v = k[:, take], v[:, take]
-            cache["k"][i, :, :k.shape[1]] = k
-            cache["v"][i, :, :v.shape[1]] = v
+            _write_layer(cache["k"], i, k)
+            _write_layer(cache["v"], i, v)
         if st is not None:
-            cache["ssm"]["conv"][i] = st["conv"]
-            cache["ssm"]["s"][i] = st["s"]
+            _write_layer(cache["ssm"]["conv"], i, st["conv"])
+            _write_layer(cache["ssm"]["s"], i, st["s"])
 
     positions = torch.arange(l, device=dev)
     blocks, cross = _layers(params, cfg)

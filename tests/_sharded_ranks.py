@@ -24,6 +24,24 @@ MOE_TOKENS = (4, 16)            # repro's test_shard_map_moe_matches_gspmd
 TRAIN = dict(global_batch=4, seq_len=64)
 TRAIN_STEPS, COMPRESSED_STEPS = 4, 2   # then 2 more with compress_grads
 DRILL_STEPS, DRILL_EVERY, DRILL_MORE = 4, 2, 2
+# lm_loss and its gradients on a mesh, from repro's weights: (arch, mesh).  On
+# (2, 2) the SSD (and Hymba's attention) run on each rank's heads; on (1, 4)
+# TinyLlama's 4 q heads go one a rank, two ranks sharing each of its 2 kv
+# heads (the whole k and v cut to that head, their gradient a partial sum).
+LOSS_CASES = (("mamba2_780m", (2, 2)), ("hymba_1_5b", (2, 2)), ("tinyllama_1_1b", (1, 4)))
+LOSS_TOKENS = (4, 32)
+# prefill and decode_step on the (2, 2) mesh from repro's weights, the KV
+# cache's sequence on model: a prompt of 6 into a cache of 16 (8 positions a
+# rank), then 4 steps whose slots cross from rank 0's half into rank 1's;
+# Mamba-2's state split by heads.
+DECODE_ARCHS = ("tinyllama_1_1b", "mamba2_780m")
+DECODE = dict(batch=2, prompt=6, max_len=16, steps=4)
+# The weights the parent writes under the group's directory, one folder an arch.
+WEIGHT_ARCHS = tuple(sorted({a for a, _ in LOSS_CASES} | set(DECODE_ARCHS)))
+# One-row microbatches on a (1, 1) mesh: rank r trains ONE_ROW_ARCHS[r].
+ONE_ROW_ARCHS = ("tinyllama_1_1b", "qwen3_moe_30b_a3b")
+ONE_ROW = dict(global_batch=2, microbatches=2, seq_len=32)
+ONE_ROW_STEPS = 2
 CLI_ARGS = ["--arch", "tinyllama_1_1b", "--smoke", "--steps", "2", "--global-batch", "4",
             "--seq-len", "64", "--device", "cpu"]
 
@@ -75,6 +93,92 @@ def remat_grads(params, cfg, policy, toks):
                for a, b in zip(grads["none"], grads["full"]))
 
 
+def on_mesh(arch, tmp, mesh):
+    """(SMOKE config, ``repro``'s weights for ``arch`` placed on ``mesh`` as
+    ``train_loop(mesh=...)`` places them, the activation policy)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.models.sharding import make_activation_policy, shard_params
+
+    cfg = get_smoke(arch)
+    params = shard_params(restore_params(cfg, os.path.join(tmp, arch)), cfg, mesh)
+    return cfg, params, make_activation_policy(mesh, cfg, dp=dp_axes(mesh))
+
+
+def tokens_on(a, mesh):
+    """Token ids ``a`` (numpy, (B, L)) on ``mesh``, the batch split on the
+    data axes."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.models.sharding import P, placements
+
+    return distribute_tensor(torch.from_numpy(a), mesh, placements(P(dp_axes(mesh), None), mesh),
+                             src_data_rank=None)
+
+
+def loss_and_grads(arch, tmp, mesh):
+    """lm_loss of ``arch`` on ``repro``'s weights and tokens on ``mesh``, and
+    its gradients, whole, by leaf path."""
+    from repro_torch.models import lm_loss
+    from repro_torch.train.tree import flatten, placed_like
+
+    cfg, params, policy = on_mesh(arch, tmp, mesh)
+    toks = tokens_on(np.load(os.path.join(tmp, "loss_tokens.npy")), mesh)
+    flat = flatten(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    with use_policy(policy):
+        loss, _ = lm_loss(params, cfg, {"tokens": toks, "labels": toks})
+        grads = torch.autograd.grad(loss, list(flat.values()))
+    return float(whole(loss)), {k: whole(placed_like(g, flat[k])) for k, g in zip(flat, grads)}
+
+
+def decode_logits(arch, tmp, mesh):
+    """``prefill`` of ``repro``'s prompt, then a ``decode_step`` for each of
+    ``repro``'s fed tokens, on ``mesh``: each call's logits, whole, and the
+    placements of the last cache's leaves."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.train.tree import flatten
+
+    cfg, params, policy = on_mesh(arch, tmp, mesh)
+    prompt = tokens_on(np.load(os.path.join(tmp, "prompt.npy")), mesh)
+    with use_policy(policy), torch.no_grad():
+        logits, cache = prefill(params, cfg, prompt, max_len=DECODE["max_len"])
+        out = [whole(logits)]
+        for tok in np.load(os.path.join(tmp, "feed.npy")):
+            logits, cache = decode_step(params, cfg, tokens_on(tok, mesh), cache)
+            out.append(whole(logits))
+    return out, {k: str(getattr(v, "placements", None)) for k, v in flatten(cache).items()}
+
+
+def counted_step(mesh, device) -> dict:
+    """TinyLlama SMOKE's training step on ``mesh`` (TRAIN's batch), placed
+    as ``train_loop(mesh=...)`` places it, run once under the roofline
+    analysis' counter: its totals (collective calls and bytes by kind,
+    FLOPs, bytes).  ``device`` "meta" on a fake group is the analysis' own
+    run; "cpu" on the gloo group, the step counted for real."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import ShapesOnly
+    from repro_torch.models.sharding import make_activation_policy, shard_params
+    from repro_torch.roofline.analysis import count_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_smoke("tinyllama_1_1b")
+    gen = ShapesOnly() if device == "meta" else torch.Generator().manual_seed(0)
+    params = shard_params(init_params(cfg, gen), cfg, mesh)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                           global_batch=TRAIN["global_batch"], seed=0)
+    args = (params, init_opt_state(params), to_device(data.batch_at(0), torch.device(device), mesh))
+    with use_policy(make_activation_policy(mesh, cfg, dp=dp_axes(mesh))):
+        return count_step(make_train_step(cfg, OptimizerConfig()), args)
+
+
 def job_stack(rank, world, tmp):
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import distribute_tensor
@@ -123,6 +227,18 @@ def job_stack(rank, world, tmp):
                              ckpt_dir=d, compress_grads=True, device="cpu", **TRAIN)
     out["train"] = first + more
 
+    # lm_loss and its gradients, prefill and decode on the meshes, from
+    # repro's weights.
+    meshes = {MESH: mesh, (1, 4): DeviceMesh("cpu", torch.arange(4).reshape(1, 4),
+                                             mesh_dim_names=("data", "model"))}
+    for arch, shape in LOSS_CASES:
+        out[("loss", arch, shape)] = loss_and_grads(arch, tmp, meshes[shape])
+    for arch in DECODE_ARCHS:
+        out[("decode", arch)] = decode_logits(arch, tmp, mesh)
+
+    # One step under the roofline analysis' counter, on the real group.
+    out["counted"] = counted_step(mesh, "cpu")
+
     # The CLI under the same group, one call a rank.
     out["cli"] = cli.main(CLI_ARGS + ["--mesh", "2x2:data,model"])
 
@@ -147,6 +263,17 @@ def job_stack(rank, world, tmp):
         _, resumed = cli.train_loop(cfg, steps=DRILL_STEPS + DRILL_MORE, mesh=small,
                                     ckpt_dir=d, ckpt_every=100, device="cpu", **TRAIN)
         out["drill"] = (extra, resumed)
+
+    # train_loop on a (1, 1) mesh of its own a rank, from repro's step 0, in
+    # microbatches of one row; every rank builds every rank's mesh.
+    singles = [DeviceMesh("cpu", torch.tensor([[r]]), mesh_dim_names=("data", "model"))
+               for r in range(world)]
+    if rank < len(ONE_ROW_ARCHS):
+        arch = ONE_ROW_ARCHS[rank]
+        _, hist = cli.train_loop(get_smoke(arch), steps=ONE_ROW_STEPS, mesh=singles[rank],
+                                 ckpt_dir=os.path.join(tmp, f"one_row_{arch}"),
+                                 ckpt_every=100, device="cpu", **ONE_ROW)
+        out["one_row"] = (arch, hist)
     return out
 
 

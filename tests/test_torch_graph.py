@@ -36,6 +36,11 @@ MORE_GRAPHS = {
     "rgg": ("random_geometric", (300, 0.1), {"seed": 2}),
     "er": ("erdos_renyi", (200, 6.0), {"seed": 4}),
     "bip": ("bipartite_random", (40, 30, 3), {"seed": 1}),
+    # hex_mesh writes its CSR directly, repro's builds it from the edge list:
+    # degenerate axes included.
+    **{"hex_" + "x".join(map(str, shape)): ("hex_mesh", shape, {})
+       for shape in [(1, 1, 1), (1, 1, 5), (1, 4, 1), (3, 1, 1), (2, 3, 1), (5, 1, 4),
+                     (7, 3, 2), (24, 8, 8), (32, 32, 32)]},
 }
 
 

@@ -46,6 +46,13 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_roofline_is_among_the_port_files():
+    """The roofline analysis runs in the card's machine too (chip_smoke's
+    ``[roofline]`` lines): its modules are held to the same rule."""
+    roofline = ROOT / "src" / "repro_torch" / "roofline"
+    assert {roofline / "__init__.py", roofline / "analysis.py"} <= set(PORT_FILES)
+
+
 def test_hygiene_check_catches_forbidden_imports(tmp_path):
     f = tmp_path / "x.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.core import plan\n"

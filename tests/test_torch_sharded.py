@@ -7,16 +7,26 @@ The group (``_sharded_ranks.py``) runs, from ``repro``'s weights and
 checkpoints: the MoE's ``shard_map`` and ``gspmd`` engines on the
 qwen3-moe (experts on ``model``) and grok (d_ff on ``model``) SMOKE
 configs; TinyLlama's ``train_loop`` from ``repro``'s step 0, 4 steps and
-2 more with ``compress_grads``; the ``--mesh`` CLI on each rank; and
-StableLM's elastic drill from ``(2, 2)`` onto ``(1, 2)``.  The parent
-computes ``repro``'s references while the ranks run.
+2 more with ``compress_grads``; the ``--mesh`` CLI on each rank;
+StableLM's elastic drill from ``(2, 2)`` onto ``(1, 2)``; TinyLlama's
+and Qwen3-MoE's ``train_loop`` on a ``(1, 1)`` mesh in microbatches of one
+row; ``lm_loss`` and its gradients of Mamba-2 and Hymba on ``(2, 2)`` and
+of TinyLlama on ``(1, 4)``; and TinyLlama's and Mamba-2's prefill and
+decode steps on ``(2, 2)``.  The parent computes ``repro``'s references while the ranks run, and
+a subprocess runs the roofline analysis of one of the group's steps on a
+fake process group of as many ranks.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import shutil
+import subprocess
+import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -32,6 +42,19 @@ import repro_torch.launch.train as ttrain
 MOE_TOL = 2e-4                  # repro's tolerance between the two engines
 TRAIN_RTOL = 1e-5
 GROUP_LIMIT_S = 300             # the whole job, under a loaded suite
+ANALYSIS_SIDE = r"""
+import json, sys
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+import _sharded_ranks as ranks
+from repro_torch.roofline.analysis import fake_process_group
+with fake_process_group(4):
+    # A CPU mesh, as the gloo group's: DTensor moves splits as it does there.
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(ranks.MESH), mesh_dim_names=("data", "model"))
+    totals = ranks.counted_step(mesh, "meta")
+with open(sys.argv[1], "w") as f:
+    json.dump(totals, f)
+"""
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,6 +78,44 @@ def _repro_train(start, d, compress):
     return first + more
 
 
+def _weights(arch, seed):
+    """repro's parameters of ``arch``'s SMOKE config; an SSM's per-head
+    scalars (zero, one and zero at init) drawn so that they count."""
+    jp = jt.init_params(jcfgs.get_smoke(arch), jax.random.PRNGKey(20 + seed))
+    if "ssm" in jp["blocks"]:
+        rng = np.random.default_rng(seed)
+        shape = jp["blocks"]["ssm"]["a_log"].shape
+        jp["blocks"]["ssm"].update(
+            {k: jnp.asarray((rng.standard_normal(shape) * scale).astype(np.float32))
+             for k, scale in (("a_log", 0.5), ("d_skip", 1.0), ("dt_bias", 0.5))})
+    return jp
+
+
+def _repro_loss_and_grads(arch, jp, toks):
+    """repro's lm_loss on one device, tokens as labels, and its gradients
+    by leaf path."""
+    cfg = jcfgs.get_smoke(arch)
+    fn = jax.jit(jax.value_and_grad(lambda p, b: jt.lm_loss(p, cfg, b), has_aux=True))
+    (loss, _), grads = fn(jp, {"tokens": jnp.asarray(toks, jnp.int32),
+                               "labels": jnp.asarray(toks, jnp.int32)})
+    return float(loss), {"/".join(str(k.key) for k in path): np.asarray(g)
+                         for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]}
+
+
+def _repro_decode(arch, jp, prompt, feed):
+    """repro's prefill of ``prompt``, then a decode step for each of
+    ``feed``: each call's logits."""
+    cfg = jcfgs.get_smoke(arch)
+    logits, cache = jax.jit(jt.prefill, static_argnums=1, static_argnames="max_len")(
+        jp, cfg, jnp.asarray(prompt, jnp.int32), max_len=ranks.DECODE["max_len"])
+    out = [np.asarray(logits)]
+    step = jax.jit(jt.decode_step, static_argnums=1)
+    for tok in feed:
+        logits, cache = step(jp, cfg, jnp.asarray(tok, jnp.int32), cache)
+        out.append(np.asarray(logits))
+    return out
+
+
 @pytest.fixture(scope="module")
 def stack(tmp_path_factory):
     """(what each rank sent back, repro's references)."""
@@ -72,9 +133,44 @@ def stack(tmp_path_factory):
     jtrain.train_loop(jcfgs.get_smoke("tinyllama_1_1b"), steps=0, ckpt_dir=start,
                       **ranks.TRAIN)
     shutil.copytree(start, tmp / "tinyllama")
+    for arch in ranks.ONE_ROW_ARCHS:
+        jtrain.train_loop(jcfgs.get_smoke(arch), steps=0, ckpt_dir=str(tmp / f"one_row_{arch}"),
+                          **ranks.ONE_ROW)
+        shutil.copytree(tmp / f"one_row_{arch}", tmp / f"repro_one_row_{arch}")
+    models = {arch: _weights(arch, i) for i, arch in enumerate(ranks.WEIGHT_ARCHS)}
+    for arch, jp in models.items():
+        jckpt.save(str(tmp / arch), 0, {"params": jp})
+    rng = np.random.default_rng(2)
+    b = ranks.DECODE["batch"]
+    toks = {"loss_tokens": rng.integers(0, 512, ranks.LOSS_TOKENS),
+            "prompt": rng.integers(0, 512, (b, ranks.DECODE["prompt"])),
+            "feed": rng.integers(0, 512, (ranks.DECODE["steps"], b, 1))}
+    for name, a in toks.items():
+        np.save(tmp / f"{name}.npy", a.astype(np.int32))
     handle = group.start_group(tmp, 4, "stack", str(tmp), module="_sharded_ranks")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
+        [here, os.path.join(os.path.dirname(here), "src"),
+         *filter(None, [os.environ.get("PYTHONPATH")])])}
+    analysis = subprocess.Popen([sys.executable, "-c", ANALYSIS_SIDE, str(tmp / "analysis.json")],
+                                env=env)
     ref["train"] = _repro_train(start, str(tmp / "repro_train"), True)
+    for arch in ranks.ONE_ROW_ARCHS:
+        ref["one_row", arch] = jtrain.train_loop(
+            jcfgs.get_smoke(arch), steps=ranks.ONE_ROW_STEPS,
+            ckpt_dir=str(tmp / f"repro_one_row_{arch}"), ckpt_every=100, **ranks.ONE_ROW)[1]
     ref["cli"] = ttrain.main(ranks.CLI_ARGS)
+    for arch, _ in ranks.LOSS_CASES:
+        ref["loss", arch] = _repro_loss_and_grads(arch, models[arch], toks["loss_tokens"])
+    for arch in ranks.DECODE_ARCHS:
+        ref["decode", arch] = _repro_decode(arch, models[arch], toks["prompt"], toks["feed"])
+    try:
+        assert analysis.wait(timeout=GROUP_LIMIT_S) == 0, "the analysis' subprocess failed"
+    finally:
+        if analysis.poll() is None:
+            analysis.kill()
+            analysis.wait()
+    ref["analysis"] = json.loads((tmp / "analysis.json").read_text())
     outs = group.join_group(handle, GROUP_LIMIT_S)
     return outs, ref, tmp
 
@@ -126,6 +222,80 @@ def test_sharded_train_follows_repro(stack):
                                    rtol=1e-6)
         assert [h["loss"] for h in got] == [h["loss"] for h in outs[0]["train"]]
     assert want[3]["loss"] < want[0]["loss"]
+
+
+@pytest.mark.parametrize("arch", ranks.ONE_ROW_ARCHS)
+def test_one_row_microbatches_on_a_mesh(stack, arch):
+    """train_loop on a (1, 1) mesh, global batch 2 in 2 microbatches of one
+    row, from repro's step 0: each step's loss within 1e-5 relative of
+    repro's train_loop on the same inputs (DTensor refused to flatten a
+    one-row batch split on the mesh before the batch's split kept no
+    Shard of a dim of size 1)."""
+    outs, ref, _ = stack
+    (got_arch, got), = [o["one_row"] for o in outs if o.get("one_row", (None,))[0] == arch]
+    want = ref["one_row", arch]
+    assert [h["step"] for h in got] == [h["step"] for h in want] == list(range(ranks.ONE_ROW_STEPS))
+    np.testing.assert_allclose([h["loss"] for h in got], [h["loss"] for h in want],
+                               rtol=TRAIN_RTOL)
+    np.testing.assert_allclose([h["lr"] for h in got], [h["lr"] for h in want], rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch,shape", ranks.LOSS_CASES)
+def test_lm_loss_on_the_mesh_matches_repro(stack, arch, shape):
+    """lm_loss and every gradient on a mesh, from repro's weights, against
+    repro's single-device ``jax.value_and_grad(lm_loss)``: Mamba-2 and Hymba
+    on (2, 2), each rank running the SSD (and Hymba's attention) on its own
+    heads; TinyLlama on (1, 4), where two ranks' q heads share one kv head
+    (k and v whole on ``model``, cut to that head, their gradient a partial
+    sum).  The loss within 1e-5 relative, every element of every rank's
+    gradients within 1e-5 (float32, the same products summed in another
+    order)."""
+    outs, ref, _ = stack
+    want_loss, want = ref["loss", arch]
+    for o in outs:
+        loss, grads = o[("loss", arch, shape)]
+        assert loss == pytest.approx(want_loss, rel=1e-5)
+        assert sorted(grads) == sorted(want)
+        for k, g in grads.items():
+            assert g.shape == want[k].shape, k
+            np.testing.assert_allclose(g, want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ranks.DECODE_ARCHS)
+def test_decode_on_the_mesh_matches_repro(stack, arch):
+    """prefill and 4 decode steps on the (2, 2) mesh from repro's weights,
+    the KV cache's sequence split on ``model`` (each rank scoring its own
+    positions, the softmax combined over the ranks; the slots written cross
+    from one rank's half into the other's) and Mamba-2's state split by
+    heads: every rank's logits of every call within 1e-5 of repro's
+    prefill and decode_step on one device."""
+    outs, ref, _ = stack
+    want = ref["decode", arch]
+    for o in outs:
+        got, placed = o[("decode", arch)]
+        if arch == "tinyllama_1_1b":
+            assert placed["k"] == placed["v"] == "(Shard(dim=1), Shard(dim=2))"
+        else:
+            assert placed["ssm/s"] == "(Shard(dim=1), Shard(dim=2))"
+        assert len(got) == len(want) == ranks.DECODE["steps"] + 1
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape, i
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=f"call {i}")
+
+
+def test_roofline_analysis_predicts_the_group(stack):
+    """The roofline analysis of TinyLlama's step on a fake group of 4 ranks,
+    meta tensors on a mesh of the CPU's device type (as the gloo group's),
+    equals what its counter counts on every rank of the gloo group running
+    the same step for real: collective calls and bytes by kind, FLOPs and
+    bytes (the same code makes the same DTensor decisions on the same local
+    shapes)."""
+    outs, ref, _ = stack
+    want = ref["analysis"]
+    assert want["collective_calls_per_dev"] and want["hlo_flops_per_dev"] > 0
+    for o in outs:
+        got = json.loads(json.dumps(o["counted"]))
+        assert got == want
 
 
 def test_mesh_checkpoint_restores_in_repro(stack):

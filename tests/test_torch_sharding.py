@@ -13,6 +13,7 @@ and meta tensors.  ``repro``'s own mini dry run fails here on jax 0.9
 """
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import subprocess
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 import repro_torch.configs as tcfgs
-from repro_torch.launch import dryrun, specs
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import ShapeMesh, dp_axes, make_production_mesh
 from repro_torch.models.sharding import (
     P,
@@ -164,28 +165,94 @@ def test_shard_activation_is_the_identity_off_the_mesh():
     assert get_policy() is None
 
 
-def test_mini_dryrun_multipod_axes(monkeypatch):
+DRYRUN_SIDE = r"""
+import json, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import ShapeMesh
+from repro_torch.roofline.analysis import fake_process_group
+
+out = {}
+full = dict(specs.SHAPES)
+specs.SHAPES["train_4k"] = configs.ShapeSpec("train_4k", 64, 8, "train")
+specs.SHAPES["decode_32k"] = configs.ShapeSpec("decode_32k", 64, 8, "decode")
+mesh = ShapeMesh(("pod", "data", "model"), (2, 2, 2))
+with fake_process_group(8):
+    out["mini"] = dryrun.run_cell("qwen3_moe_30b_a3b", "train_4k", mesh,
+                                  cfg=configs.get_smoke("qwen3_moe_30b_a3b"), verbose=False)
+    out["ssm_decode"] = dryrun.run_cell("mamba2_780m", "decode_32k", mesh,
+                                        cfg=configs.get_smoke("mamba2_780m"), verbose=False)
+specs.SHAPES.update(full)
+out["skip"] = dryrun.main(["--arch", "hubert_xlarge", "--shape", "decode_32k", "--both-meshes"])
+out["run"] = dryrun.main(["--arch", "tinyllama_1_1b", "--shape", "decode_32k", "--both-meshes"])
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+"""
+ANALYSIS_KEYS = ("hlo_flops_per_dev", "collective_bytes_per_dev", "peak_memory_in_bytes",
+                 "compute_s", "memory_s", "collective_s", "dominant", "useful_flops_ratio")
+
+
+@pytest.fixture(scope="module")
+def dryrun_side(tmp_path_factory):
+    """The dry run's records, from a subprocess (each of its fake process
+    groups needs a process of its own), and what it printed."""
+    path = tmp_path_factory.mktemp("dryrun") / "records.json"
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
+        [src, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    done = subprocess.run([sys.executable, "-c", DRYRUN_SIDE, str(path)], env=env,
+                          timeout=600, capture_output=True, text=True)
+    assert done.returncode == 0, done.stderr[-4000:]
+    with open(path) as f:
+        return json.load(f), done.stdout
+
+
+def test_mini_dryrun_multipod_axes(dryrun_side):
     """repro's mini dry run: the qwen3-moe SMOKE config at 64 x 8 on a
-    (2, 2, 2) (pod, data, model) mesh: status ok, FLOPs > 0, each device's
-    argument bytes below the whole."""
-    monkeypatch.setitem(specs.SHAPES, "train_4k", tcfgs.ShapeSpec("train_4k", 64, 8, "train"))
-    mesh = ShapeMesh(("pod", "data", "model"), (2, 2, 2))
+    (2, 2, 2) (pod, data, model) mesh of a fake process group: status ok,
+    repro's analysis keys, FLOPs > 0, each device's argument bytes below
+    the whole, collectives on the split mesh, the expert all-to-all among
+    them."""
+    rec = dryrun_side[0]["mini"]
+    assert rec["status"] == "ok" and rec["mesh"] == "2x2x2" and rec["chips"] == 8
+    assert all(k in rec for k in ANALYSIS_KEYS)
+    assert rec["flops"] == rec["hlo_flops_per_dev"] > 0
     cfg = tcfgs.get_smoke("qwen3_moe_30b_a3b")
-    rec = dryrun.run_cell("qwen3_moe_30b_a3b", "train_4k", mesh, cfg=cfg, verbose=False)
-    assert rec["status"] == "ok" and rec["mesh"] == "2x2x2" and rec["flops"] > 0
     leaves = flatten(specs.params_specs(cfg)).values()
     assert rec["params"] == sum(t.numel() for t in leaves)
     assert 0 < rec["param_bytes"] < sum(t.numel() * t.element_size() for t in leaves)
+    assert rec["argument_size_in_bytes"] <= rec["peak_memory_in_bytes"]
+    assert rec["collective_bytes_per_dev"]["all-to-all"] > 0
+    assert rec["collective_total_per_dev"] > rec["collective_bytes_per_dev"]["all-to-all"]
 
 
-def test_dryrun_cli_skips_and_runs(capsys):
+def test_mini_dryrun_ssm_decode(dryrun_side):
+    """The SSM's decode step on a mesh: Mamba-2's SMOKE config, decode_32k
+    cut to 8 rows of a 64-position cache, on the (2, 2, 2) mesh (its state
+    split by heads on ``model``): status ok, repro's analysis keys, FLOPs
+    and collectives."""
+    rec = dryrun_side[0]["ssm_decode"]
+    assert rec["status"] == "ok" and rec["mesh"] == "2x2x2" and rec["chips"] == 8
+    assert all(k in rec for k in ANALYSIS_KEYS)
+    assert rec["flops"] == rec["hlo_flops_per_dev"] > 0
+    assert rec["collective_total_per_dev"] > 0
+    assert rec["argument_size_in_bytes"] <= rec["peak_memory_in_bytes"]
+
+
+def test_dryrun_cli_skips_and_runs(dryrun_side):
     """The CLI: repro's skip reason for a cell that does not run, a record
-    for each mesh of one that does."""
-    recs = dryrun.main(["--arch", "hubert_xlarge", "--shape", "decode_32k", "--both-meshes"])
-    assert recs == [{"arch": "hubert_xlarge", "shape": "decode_32k", "status": "skip",
-                     "reason": tcfgs.skip_reason("hubert_xlarge", "decode_32k")}]
-    recs = dryrun.main(["--arch", "mamba2_780m", "--shape", "decode_32k", "--both-meshes"])
+    for each mesh of one that does (TinyLlama's decode step at full width,
+    one of the quicker cells on the 512 ranks), with repro's analysis keys,
+    collectives on both production meshes, and each device's share of the
+    work halved on the mesh of twice the ranks."""
+    out, printed = dryrun_side
+    assert out["skip"] == [{"arch": "hubert_xlarge", "shape": "decode_32k", "status": "skip",
+                            "reason": tcfgs.skip_reason("hubert_xlarge", "decode_32k")}]
+    recs = out["run"]
     assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
     assert all(r["status"] == "ok" and r["flops"] > 0 for r in recs)
+    assert all(k in r for r in recs for k in ANALYSIS_KEYS)
+    assert all(r["collective_total_per_dev"] > 0 for r in recs)
     assert recs[1]["argument_size_in_bytes"] < recs[0]["argument_size_in_bytes"]
-    assert "0 failures" in capsys.readouterr().out
+    assert recs[1]["hlo_flops_per_dev"] * 2 == recs[0]["hlo_flops_per_dev"]
+    assert printed.count("0 failures") == 2
