@@ -37,11 +37,16 @@ def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda"):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default group,
     whose world size must be the product of ``shape``; ``device`` is
-    ``"cuda"`` (one card a rank) unless the caller asks for ``"cpu"``."""
+    ``"cuda"`` (one card a rank) unless the caller asks for ``"cpu"``.
+    Without a default group, a CPU mesh starts a gloo one: torch 2.11
+    starts NCCL alone on a machine with cards."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if str(device) == "cpu" and not dist.is_initialized():
+        dist.init_process_group("gloo")
     return init_device_mesh(str(device), tuple(shape), mesh_dim_names=tuple(axes))
 
 

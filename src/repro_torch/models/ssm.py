@@ -17,6 +17,8 @@ parameters), and each float32 factor is cast to the model's dtype where
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -58,9 +60,11 @@ def init_ssm(gen: torch.Generator, cfg, *, layers: int, dtype: torch.dtype) -> P
 
 
 def _causal_conv(x, w):
-    """x: (B, L, C), w: (K, C): depthwise causal conv, then SiLU."""
+    """x: (B, L, C), w: (K, C): depthwise causal conv, then SiLU.  The K - 1
+    leading zeros are joined on with ``cat``: torch 2.11's DTensor fails to
+    plan the redistribution of ``F.pad``'s input on a mesh."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = torch.cat([torch.zeros_like(x[:, :1])] * (k - 1) + [x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     return F.silu(out)
 
@@ -87,7 +91,8 @@ def ssm_apply(p, x, cfg):
     xs = _causal_conv(xs, p["conv_x"])                       # (B, L, di)
     dt, dta = _step_sizes(p, x)                              # (B, L, H) fp32
 
-    y = _ssd_on_mesh(xs, bs, cs, dt, dta, p["d_skip"], q, hd)   # (B, L, di)
+    y = _ssd_on_mesh(xs, bs, cs, dt, dta, p["d_skip"], q, hd,
+                     shard_heads=cfg.shard_ssm_heads)          # (B, L, di)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out"]
 
@@ -96,6 +101,14 @@ def _ssd(xs, bs, cs, dt, dta, d_skip, q: int, hd: int):
     """The chunked dual form over ``xs`` (B, L, H·hd), ``bs``, ``cs`` (B, L,
     N), ``dt``, ``dta`` (B, L, H) and ``d_skip`` (H,), with the skip term:
     (B, L, H·hd)."""
+    xh, cc, cums, y_diag, chunk_decay, state_c = _ssd_chunks(xs, bs, cs, dt, dta, q, hd)
+    return _ssd_out(xh, cc, cums, y_diag, _ssd_states(chunk_decay, state_c), d_skip)
+
+
+def _ssd_chunks(xs, bs, cs, dt, dta, q: int, hd: int):
+    """What each chunk gives on its own: (xh (B, nc, Q, H, hd), cc (B, nc, Q,
+    N), cums (B, nc, Q, H), the within-chunk term y_diag (B, nc, Q, H, hd),
+    each chunk's total decay (B, nc, H) and its state (B, nc, H, hd, N))."""
     b, l, h = dt.shape
     n, nc = bs.shape[2], l // q
 
@@ -118,36 +131,75 @@ def _ssd(xs, bs, cs, dt, dta, d_skip, q: int, hd: int):
     y_diag = torch.einsum("bcqsh,bcshp->bcqhp", w.to(xh.dtype), xh)
     del w
 
-    # Cross-chunk recurrence over chunk states.
     chunk_decay = torch.exp(cums[:, :, -1])                  # (B, nc, H) total decay
     # Each chunk's state: sum_s exp(cum_last - cum_s) dt_s x_s B_s^T.
     rdec = torch.exp(cums[:, :, -1:, :] - cums) * dtc        # (B,nc,Q,H)
     state_c = torch.einsum("bcqh,bcqhp,bcqn->bchpn", rdec.to(xh.dtype), xh, bc)
-    s = torch.zeros((b, h, hd, n), dtype=torch.float32, device=xs.device)
+    return xh, cc, cums, y_diag, chunk_decay, state_c
+
+
+def _ssd_states(chunk_decay, state_c):
+    """The cross-chunk recurrence: the float32 state at each chunk's start
+    (B, nc, H, hd, N), from each chunk's total decay and state."""
+    b, nc, h, hd, n = state_c.shape
+    s = torch.zeros((b, h, hd, n), dtype=torch.float32, device=state_c.device)
     s_before = []
     for c in range(nc):
         s_before.append(s)
         s = s * chunk_decay[:, c, :, None, None] + state_c[:, c].float()
-    s_before = torch.stack(s_before, dim=1)                  # (B, nc, H, P, N)
+    return torch.stack(s_before, dim=1)
 
-    # Off-diagonal output: y_off[t] = exp(cum_t) * C_t . S_chunk_start.
+
+def _ssd_out(xh, cc, cums, y_diag, s_before, d_skip):
+    """(B, L, H·hd): the within-chunk term, the off-diagonal term
+    ``y_off[t] = exp(cum_t) * C_t . S_chunk_start`` and the skip term."""
+    b, nc, q, h, hd = xh.shape
     into = torch.exp(cums)                                   # (B,nc,Q,H)
     y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cc, s_before.to(cc.dtype),
                          into.to(cc.dtype))
 
-    y = (y_diag + y_off).reshape(b, l, h, hd)
-    y = y + xh.reshape(b, l, h, hd) * d_skip.to(y.dtype).reshape(1, 1, h, 1)
-    return y.reshape(b, l, h * hd)
+    y = (y_diag + y_off).reshape(b, nc * q, h, hd)
+    y = y + xh.reshape(b, nc * q, h, hd) * d_skip.to(y.dtype).reshape(1, 1, h, 1)
+    return y.reshape(b, nc * q, h * hd)
 
 
-def _ssd_on_mesh(xs, bs, cs, dt, dta, d_skip, q: int, hd: int):
-    """:func:`_ssd`; on a mesh, run where each rank holds its heads, as
-    ``repro``'s partitioner keeps the SSM heads on ``model``: plain local
-    shards, the batch split as ``xs``'s, ``xs``, ``dt``, ``dta`` and
-    ``d_skip`` split by heads on ``model``, ``bs`` and ``cs`` whole there
-    (their gradient a partial sum over ``model``, ``d_skip``'s over the
-    batch's axes).  Where the heads do not divide, every rank runs it on
-    DTensors with only the batch split."""
+def _local(t, mesh, place, grad):
+    """The rank's shard of ``t`` (a DTensor, or a plain tensor every rank
+    holds whole) placed by ``place``, as a plain tensor whose gradient is
+    placed by ``grad``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, place).to_local(grad_placements=grad)
+
+
+def _placed(y, mesh, place, shape):
+    """The rank's plain result ``y`` as its part of a DTensor of the global
+    ``shape``, placed by ``place``."""
+    from torch.distributed.tensor import DTensor
+
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(y.contiguous(), mesh, place, run_check=False,
+                              shape=tuple(shape), stride=stride)
+
+
+def _ssd_on_mesh(xs, bs, cs, dt, dta, d_skip, q: int, hd: int, *, shard_heads: bool):
+    """:func:`_ssd`; on a mesh, each rank runs its share on plain local
+    shards, the batch split as ``xs``'s:
+
+    * by heads, as ``repro``'s partitioner keeps the SSM heads on
+      ``model``, where ``shard_heads`` (the config's ``shard_ssm_heads``)
+      and the heads divide ``model``: ``xs``, ``dt``, ``dta`` and
+      ``d_skip`` split by heads there, ``bs`` and ``cs`` whole (their
+      gradient a partial sum over ``model``, ``d_skip``'s over the batch's
+      axes); the result stays split by heads;
+    * else by chunks, where the chunks divide ``model``
+      (:func:`_ssd_by_chunks`); the result, split on the sequence over
+      ``model``, is gathered there, as the fallback's;
+    * else (the chunks do not divide ``model`` either, or the batch is
+      already split on it) every rank runs it on DTensors with only the
+      batch split: every ``model`` rank does the same work."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not isinstance(xs, DTensor):
@@ -156,28 +208,60 @@ def _ssd_on_mesh(xs, bs, cs, dt, dta, d_skip, q: int, hd: int):
     names = axis_names(mesh)
     base = batch_placements(xs)
     m = names.index("model") if "model" in names else None
-    h = dt.shape[2]
-    if m is None or mesh.size(m) == 1 or base[m] != Replicate() or h % mesh.size(m):
+    ntp = 1 if m is None else mesh.size(m)
+    h, nc = dt.shape[2], dt.shape[1] // q
+    by_heads = shard_heads and h % ntp == 0
+    if ntp == 1 or base[m] != Replicate() or not by_heads and nc % ntp:
         xs, bs, cs, dt, dta = (batch_split(t) for t in (xs, bs, cs, dt, dta))
         return batch_split(_ssd(xs, bs, cs, dt, dta, replicated(d_skip), q, hd))
+    if not by_heads:
+        return batch_split(_ssd_by_chunks(xs, bs, cs, dt, dta, d_skip, q, hd, base, m))
     heads = list(base)
     heads[m] = Shard(2)
     shared = [Partial() if i == m else p for i, p in enumerate(base)]
     per_head = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
     per_head_grad = [Shard(0) if i == m else Partial() if p == Shard(0) else Replicate()
                      for i, p in enumerate(base)]
+    y = _ssd(_local(xs, mesh, heads, heads), _local(bs, mesh, base, shared),
+             _local(cs, mesh, base, shared), _local(dt, mesh, heads, heads),
+             _local(dta, mesh, heads, heads), _local(d_skip, mesh, per_head, per_head_grad),
+             q, hd)
+    return _placed(y, mesh, heads, xs.shape)
 
-    def local(t, place, grad):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, place).to_local(grad_placements=grad)
 
-    y = _ssd(local(xs, heads, heads), local(bs, base, shared), local(cs, base, shared),
-             local(dt, heads, heads), local(dta, heads, heads),
-             local(d_skip, per_head, per_head_grad), q, hd)
-    shape = tuple(xs.shape)
-    return DTensor.from_local(y.contiguous(), mesh, heads, run_check=False, shape=shape,
-                              stride=(shape[1] * shape[2], shape[2], 1))
+def _ssd_by_chunks(xs, bs, cs, dt, dta, d_skip, q: int, hd: int, base, m: int):
+    """:func:`_ssd` on DTensors placed by ``base`` (the batch split alone),
+    split over the mesh axis ``m`` by chunks: each rank computes the
+    within-chunk term and the states of its own chunks (every input split
+    on the sequence over ``m``); the chunks' states and total decays are
+    all-gathered over ``m``; every rank runs the cross-chunk recurrence
+    (elementwise and cheap) and computes the off-diagonal term of its own
+    chunks.  The gathered states' gradient is a partial sum over ``m`` (a
+    reduce-scatter on the way back), ``d_skip``'s over ``m`` and the
+    batch's axes.  Returns (B, L, H·hd) split on the sequence over ``m``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = xs.device_mesh
+    seq = list(base)
+    seq[m] = Shard(1)
+    xh, cc, cums, y_diag, chunk_decay, state_c = _ssd_chunks(
+        *(_local(t, mesh, seq, seq) for t in (xs, bs, cs, dt, dta)), q, hd)
+    gathered_grad = [Partial() if i == m else p for i, p in enumerate(base)]
+
+    def gathered(t):
+        """(B_loc, nc / |m|, ...) -> (B_loc, nc, ...): every rank's chunks."""
+        whole = (xs.shape[0], t.shape[1] * mesh.size(m), *t.shape[2:])
+        return _placed(t, mesh, seq, whole).redistribute(mesh, base).to_local(
+            grad_placements=gathered_grad)
+
+    ncl = chunk_decay.shape[1]
+    first = mesh.get_local_rank(m) * ncl
+    s_before = _ssd_states(gathered(chunk_decay), gathered(state_c))[:, first:first + ncl]
+    skip_grad = [Partial() if i == m or p == Shard(0) else Replicate()
+                 for i, p in enumerate(base)]
+    y = _ssd_out(xh, cc, cums, y_diag, s_before,
+                 _local(d_skip, mesh, [Replicate()] * mesh.ndim, skip_grad))
+    return _placed(y, mesh, seq, xs.shape)
 
 
 def ssm_decode(p, x, state, cfg):

@@ -359,17 +359,88 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None):
     return shard_activation(batch_split(x) @ _head(params, cfg), "logits"), aux
 
 
-def _reduced(x):
-    """``x`` with every partial placement of a DTensor reduced: the gather
-    of the gold logits from vocab-sharded logits leaves a masked partial sum,
-    which DTensor cannot reduce-scatter once indexed; reduced in place it is
-    one all-reduce of (B, L, 1).  A plain tensor as it is."""
-    from torch.distributed.tensor import DTensor, Replicate
+class _GoldOnShards(torch.autograd.Function):
+    """The gold logits ``logits[b, l, labels[b, l]]`` of DTensor logits (B, L,
+    V), each rank working on its own shard: the label's column where it
+    falls in the rank's part of the vocabulary, 0 elsewhere, returned as a
+    DTensor (B, L) that is ``Partial`` over the mesh axes that split the
+    vocabulary and keeps the batch's and the sequence's splits.  The
+    backward scatters the gradient into zeros of the rank's own shard:
+    ``torch.gather``'s backward on the DTensor would make zeros of the
+    global logits on every rank (DTensor replicates a ``new_zeros`` of
+    global sizes)."""
 
-    if not isinstance(x, DTensor):
-        return x
+    @staticmethod
+    def forward(ctx, logits, labels):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh, place = logits.device_mesh, list(logits.placements)
+        rows = [p if p in (Shard(0), Shard(1)) else Replicate() for p in place]
+        if not isinstance(labels, DTensor):
+            labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                        run_check=False)
+        local = logits.to_local()
+        _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, place)
+        at = labels.redistribute(mesh, rows).to_local() - offset[2]
+        inside = (at >= 0) & (at < local.shape[2])
+        at = at.clamp(0, local.shape[2] - 1)[..., None]
+        gold = torch.where(inside, torch.gather(local, -1, at)[..., 0], 0.0)
+        ctx.save_for_backward(at, inside)
+        ctx.layout = (mesh, place, rows, local.shape, logits.shape, logits.stride())
+        shape = tuple(logits.shape[:2])
+        return DTensor.from_local(gold, mesh, [Partial() if p == Shard(2) else r
+                                               for p, r in zip(place, rows)],
+                                  run_check=False, shape=shape, stride=(shape[1], 1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        at, inside = ctx.saved_tensors
+        mesh, place, rows, local_shape, shape, stride = ctx.layout
+        g = grad.redistribute(mesh, rows).to_local()
+        out = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
+        out.scatter_(-1, at, torch.where(inside, g, 0.0)[..., None])
+        return DTensor.from_local(out, mesh, place, run_check=False, shape=shape,
+                                  stride=stride), None
+
+
+def _reduced(x):
+    """``x`` with every partial placement of a DTensor reduced (one
+    all-reduce over those mesh axes)."""
+    from torch.distributed.tensor import Replicate
+
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
                                           for p in x.placements])
+
+
+def _log_normalizer(logits):
+    """``torch.logsumexp(logits, dim=-1)``; where a mesh axis splits the
+    vocabulary, on each rank's shard: the row maxima and the sums of the
+    shifted exponentials are partial over the vocab's shards, each reduced
+    by one all-reduce of (B, L) (DTensor's ``logsumexp`` gathers the whole
+    vocabulary on every rank)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(logits, DTensor) and any(
+            p == Shard(2) and logits.device_mesh.size(i) > 1
+            for i, p in enumerate(logits.placements))):
+        return torch.logsumexp(logits, dim=-1)
+    m = _reduced(logits.detach().amax(dim=-1))
+    return _reduced(torch.exp(logits - m[..., None]).sum(dim=-1)).log() + m
+
+
+def _gold_logits(logits, labels):
+    """``logits[b, l, labels[b, l]]``: ``torch.gather`` for a plain tensor;
+    for a DTensor (partial sums reduced first), :class:`_GoldOnShards`, its
+    partial sum over the vocab's shards reduced by one all-reduce of (B, L)
+    float32."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    return _reduced(_GoldOnShards.apply(_reduced(logits), labels))
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
@@ -379,16 +450,18 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
     ``batch``: ``labels`` (B, L) integer (a label < 0 is masked out),
     ``tokens``, ``img``, ``frames`` as ``forward`` takes them, except that
     ``img`` is cast to the model's dtype here (``SyntheticLMData`` draws it
-    in float32; ``repro`` promotes the product instead).
+    in float32; ``repro`` promotes the product instead).  On a mesh the
+    log-normalizer and the gold logits work on each rank's vocab shard
+    (:func:`_log_normalizer`, :class:`_GoldOnShards`).
     """
     img = batch.get("img")
     logits, aux = forward(params, cfg, batch.get("tokens"), frames=batch.get("frames"),
                           img=None if img is None else img.to(_dtype(cfg)))
     labels = batch["labels"].long()
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _log_normalizer(logits)
     # A masked label's gather reads column 0; the mask zeroes its term.
-    gold = _reduced(torch.gather(logits, -1, labels.clamp(min=0)[..., None]))[..., 0]
+    gold = _gold_logits(logits, labels.clamp(min=0))
     mask = (labels >= 0).to(torch.float32)
     ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}

@@ -30,6 +30,16 @@ DRILL_STEPS, DRILL_EVERY, DRILL_MORE = 4, 2, 2
 # heads (the whole k and v cut to that head, their gradient a partial sum).
 LOSS_CASES = (("mamba2_780m", (2, 2)), ("hymba_1_5b", (2, 2)), ("tinyllama_1_1b", (1, 4)))
 LOSS_TOKENS = (4, 32)
+# More lm_loss cases, (name, arch, mesh): Hymba with its heads whole on model,
+# as the published config keeps them (WHOLE_HEADS), on 2 rows of 64 tokens:
+# the batch does not cover model, so the SSD splits its 4 chunks of 16 over
+# it; and TinyLlama's loss with masked labels (-1) and labels in every vocab
+# shard, on both meshes.
+LOSS_VARIANTS = (("whole_heads", "hymba_1_5b", (2, 2)),
+                 ("masked_labels", "tinyllama_1_1b", (2, 2)),
+                 ("masked_labels", "tinyllama_1_1b", (1, 4)))
+WHOLE_HEADS = dict(shard_ssm_heads=False, shard_attn_heads=False)
+WHOLE_HEADS_TOKENS = (2, 64)
 # prefill and decode_step on the (2, 2) mesh from repro's weights, the KV
 # cache's sequence on model: a prompt of 6 into a cache of 16 (8 positions a
 # rank), then 4 steps whose slots cross from rank 0's half into rank 1's;
@@ -93,14 +103,23 @@ def remat_grads(params, cfg, policy, toks):
                for a, b in zip(grads["none"], grads["full"]))
 
 
-def on_mesh(arch, tmp, mesh):
-    """(SMOKE config, ``repro``'s weights for ``arch`` placed on ``mesh`` as
-    ``train_loop(mesh=...)`` places them, the activation policy)."""
+def variant_config(name, arch):
+    """``arch``'s SMOKE config as the loss case ``name`` runs it."""
+    from repro_torch.configs import get_smoke
+
+    cfg = get_smoke(arch)
+    return dataclasses.replace(cfg, **WHOLE_HEADS) if name == "whole_heads" else cfg
+
+
+def on_mesh(arch, tmp, mesh, cfg=None):
+    """(SMOKE config (or ``cfg``), ``repro``'s weights for ``arch`` placed on
+    ``mesh`` as ``train_loop(mesh=...)`` places them, the activation
+    policy)."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.mesh import dp_axes
     from repro_torch.models.sharding import make_activation_policy, shard_params
 
-    cfg = get_smoke(arch)
+    cfg = cfg or get_smoke(arch)
     params = shard_params(restore_params(cfg, os.path.join(tmp, arch)), cfg, mesh)
     return cfg, params, make_activation_policy(mesh, cfg, dp=dp_axes(mesh))
 
@@ -117,19 +136,24 @@ def tokens_on(a, mesh):
                              src_data_rank=None)
 
 
-def loss_and_grads(arch, tmp, mesh):
+def loss_and_grads(arch, tmp, mesh, case=None):
     """lm_loss of ``arch`` on ``repro``'s weights and tokens on ``mesh``, and
-    its gradients, whole, by leaf path."""
+    its gradients, whole, by leaf path; ``case`` one of LOSS_VARIANTS'
+    names, whose tokens and labels the parent wrote as ``{case}_tokens.npy``
+    and ``{case}_labels.npy``."""
     from repro_torch.models import lm_loss
     from repro_torch.train.tree import flatten, placed_like
 
-    cfg, params, policy = on_mesh(arch, tmp, mesh)
-    toks = tokens_on(np.load(os.path.join(tmp, "loss_tokens.npy")), mesh)
+    cfg, params, policy = on_mesh(arch, tmp, mesh, variant_config(case, arch))
+    name = case or "loss"
+    toks = tokens_on(np.load(os.path.join(tmp, f"{name}_tokens.npy")), mesh)
+    labels = toks if case is None else tokens_on(np.load(os.path.join(tmp, f"{name}_labels.npy")),
+                                                 mesh)
     flat = flatten(params)
     for t in flat.values():
         t.requires_grad_(True)
     with use_policy(policy):
-        loss, _ = lm_loss(params, cfg, {"tokens": toks, "labels": toks})
+        loss, _ = lm_loss(params, cfg, {"tokens": toks, "labels": labels})
         grads = torch.autograd.grad(loss, list(flat.values()))
     return float(whole(loss)), {k: whole(placed_like(g, flat[k])) for k, g in zip(flat, grads)}
 
@@ -233,6 +257,8 @@ def job_stack(rank, world, tmp):
                                              mesh_dim_names=("data", "model"))}
     for arch, shape in LOSS_CASES:
         out[("loss", arch, shape)] = loss_and_grads(arch, tmp, meshes[shape])
+    for case, arch, shape in LOSS_VARIANTS:
+        out[("loss", case, shape)] = loss_and_grads(arch, tmp, meshes[shape], case)
     for arch in DECODE_ARCHS:
         out[("decode", arch)] = decode_logits(arch, tmp, mesh)
 

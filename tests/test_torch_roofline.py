@@ -10,7 +10,8 @@ process group of 4 ranks in one subprocess, ``repro``'s through
 ``repro.launch.dryrun.run_cell`` on an Auto-axes ``jax.sharding.Mesh`` of 8
 forced CPU devices in another (``repro.launch.mesh.make_mesh``'s meshes
 cannot be lowered on jax 0.9, ROADMAP.md §3).  Both subprocesses run at
-once.
+once, and both also run Hymba's SMOKE cell with its heads whole on
+``model``, as the published config keeps them.
 """
 from __future__ import annotations
 
@@ -30,14 +31,18 @@ MESHES = ("1x1", "2x2")
 SUBPROCESS_LIMIT_S = 300
 
 PORT_SIDE = r"""
-import json, sys
+import dataclasses, json, sys
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 import torch.distributed as dist
 from torch.distributed.nn.functional import all_to_all_single
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 from repro_torch import configs
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import ShapeMesh
+from repro_torch.models.sharding import use_policy
 from repro_torch.roofline.analysis import StepCounter, fake_mesh, fake_process_group
 
 META = torch.device("meta")
@@ -65,16 +70,45 @@ with fake_process_group(4):
         all_to_all_single(torch.empty_like(y), y, group=mesh.get_group("model"))
     out["redistribute"]["all_to_all_single"] = (c.totals(), list(y.shape))
     cfg = configs.get_smoke("tinyllama_1_1b")
+    # Hymba's SMOKE config as the published one shards it: neither its
+    # attention heads nor its SSD heads on model (25 and 50 do not split over 16).
+    whole = dataclasses.replace(configs.get_smoke("hymba_1_5b"), shard_ssm_heads=False,
+                                shard_attn_heads=False)
+    out["whole_heads"] = {}
     for shape in ((1, 1), (2, 2)):
         rec = dryrun.run_cell("tinyllama_1_1b", "train_4k", ShapeMesh(("data", "model"), shape),
                               cfg=cfg, verbose=False)
         out["cells"]["x".join(map(str, shape))] = rec
+        rec = dryrun.run_cell("hymba_1_5b", "train_4k", ShapeMesh(("data", "model"), shape),
+                              cfg=whole, verbose=False)
+        out["whole_heads"]["x".join(map(str, shape))] = rec
+
+    class Numels(TorchDispatchMode):
+        # The element count of every tensor a rank's operation makes.
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            got = func(*args, **(kwargs or {}))
+            self.seen.update(t.numel() for t in tree_leaves(got)
+                             if isinstance(t, torch.Tensor) and not isinstance(t, FakeTensor))
+            return got
+
+    # The (2, 2) cell's step once more, every tensor it makes seen.
+    fn, args, sp, policy = specs.step_and_specs("tinyllama_1_1b", "train_4k", mesh, cfg=cfg)
+    args = specs.distribute_args(args, sp, mesh)
+    with use_policy(policy), Numels() as numels:
+        fn(*args)
+    out["numels_2x2"] = sorted(numels.seen)
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
 
 REPRO_SIDE = r"""
-import os, json, sys
+import dataclasses, os, json, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import jax
 import numpy as np
@@ -84,11 +118,15 @@ from repro.launch import dryrun, specs
 
 specs.SHAPES["train_4k"] = configs.ShapeSpec("train_4k", 64, 8, "train")
 cfg = configs.get_smoke("tinyllama_1_1b")
+whole = dataclasses.replace(configs.get_smoke("hymba_1_5b"), shard_ssm_heads=False,
+                            shard_attn_heads=False)
 out = {}
 for shape in ((1, 1), (2, 2)):
     mesh = Mesh(np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape), ("data", "model"))
     rec = dryrun.run_cell("tinyllama_1_1b", "train_4k", mesh, cfg=cfg, verbose=False)
     out["x".join(map(str, shape))] = rec
+    rec = dryrun.run_cell("hymba_1_5b", "train_4k", mesh, cfg=whole, verbose=False)
+    out["whole_heads_" + "x".join(map(str, shape))] = rec
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
@@ -232,6 +270,32 @@ def test_mini_cell_peak_memory(sides):
                                              - rec["argument_size_in_bytes"])
         assert rec["output_size_in_bytes"] > 0
     assert cells["2x2"]["peak_memory_in_bytes"] < cells["1x1"]["peak_memory_in_bytes"]
+
+
+def test_mini_cell_makes_no_global_logits(sides):
+    """No tensor that a rank's operation makes in the (2, 2) cell's step has
+    the element count of the global logits (8 x 64 x 512): the loss's
+    normalizer and gold logit, and the gold logit's gradient, work on each
+    rank's vocab shard (DTensor's gather backward made zeros of the global
+    logits on every rank, its logsumexp gathered the whole vocabulary).
+    Each rank's own logits shard (4 x 64 x 256) is made."""
+    port, _ = sides
+    numels = set(port["numels_2x2"])
+    assert 8 * 64 * 512 not in numels
+    assert 4 * 64 * 256 in numels
+
+
+def test_whole_heads_cell_splits_the_work_in_four(sides):
+    """Hymba's SMOKE config with its heads kept whole on ``model``, as the
+    published config keeps them: on (2, 2) each device does exactly a
+    quarter of the (1, 1) products, as repro's partitioner does (tolerance
+    0: the SSD splits its chunks over ``model``; the cross-chunk recurrence,
+    which every rank runs whole, holds no product)."""
+    port, repro = sides
+    got = port["whole_heads"]
+    assert got["2x2"]["hlo_flops_per_dev"] * 4 == got["1x1"]["hlo_flops_per_dev"] > 0
+    assert (repro["whole_heads_2x2"]["hlo_flops_per_dev"] * 4
+            == repro["whole_heads_1x1"]["hlo_flops_per_dev"])
 
 
 @pytest.mark.parametrize("mesh", MESHES)

@@ -10,8 +10,9 @@ configs; TinyLlama's ``train_loop`` from ``repro``'s step 0, 4 steps and
 2 more with ``compress_grads``; the ``--mesh`` CLI on each rank;
 StableLM's elastic drill from ``(2, 2)`` onto ``(1, 2)``; TinyLlama's
 and Qwen3-MoE's ``train_loop`` on a ``(1, 1)`` mesh in microbatches of one
-row; ``lm_loss`` and its gradients of Mamba-2 and Hymba on ``(2, 2)`` and
-of TinyLlama on ``(1, 4)``; and TinyLlama's and Mamba-2's prefill and
+row; ``lm_loss`` and its gradients of Mamba-2 and Hymba on ``(2, 2)``, of
+TinyLlama on ``(1, 4)``, of Hymba with its heads whole on ``model`` and of
+TinyLlama with masked labels; and TinyLlama's and Mamba-2's prefill and
 decode steps on ``(2, 2)``.  The parent computes ``repro``'s references while the ranks run, and
 a subprocess runs the roofline analysis of one of the group's steps on a
 fake process group of as many ranks.
@@ -91,13 +92,14 @@ def _weights(arch, seed):
     return jp
 
 
-def _repro_loss_and_grads(arch, jp, toks):
-    """repro's lm_loss on one device, tokens as labels, and its gradients
-    by leaf path."""
+def _repro_loss_and_grads(arch, jp, toks, labels=None):
+    """repro's lm_loss on one device, ``labels`` (the tokens where None), and
+    its gradients by leaf path."""
     cfg = jcfgs.get_smoke(arch)
+    labels = toks if labels is None else labels
     fn = jax.jit(jax.value_and_grad(lambda p, b: jt.lm_loss(p, cfg, b), has_aux=True))
     (loss, _), grads = fn(jp, {"tokens": jnp.asarray(toks, jnp.int32),
-                               "labels": jnp.asarray(toks, jnp.int32)})
+                               "labels": jnp.asarray(labels, jnp.int32)})
     return float(loss), {"/".join(str(k.key) for k in path): np.asarray(g)
                          for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]}
 
@@ -145,6 +147,14 @@ def stack(tmp_path_factory):
     toks = {"loss_tokens": rng.integers(0, 512, ranks.LOSS_TOKENS),
             "prompt": rng.integers(0, 512, (b, ranks.DECODE["prompt"])),
             "feed": rng.integers(0, 512, (ranks.DECODE["steps"], b, 1))}
+    whole = rng.integers(0, 512, ranks.WHOLE_HEADS_TOKENS)
+    masked = rng.integers(0, 512, ranks.LOSS_TOKENS)
+    masked[:, ::4] = -1
+    masked[0, 1:9] = np.arange(8) * 64            # every vocab shard on (2, 2) and (1, 4)
+    masked[1, 1:5] = (0, 127, 128, 511)           # the shards' edges
+    toks.update({"whole_heads_tokens": whole, "whole_heads_labels": whole,
+                 "masked_labels_tokens": rng.integers(0, 512, ranks.LOSS_TOKENS),
+                 "masked_labels_labels": masked})
     for name, a in toks.items():
         np.save(tmp / f"{name}.npy", a.astype(np.int32))
     handle = group.start_group(tmp, 4, "stack", str(tmp), module="_sharded_ranks")
@@ -162,6 +172,9 @@ def stack(tmp_path_factory):
     ref["cli"] = ttrain.main(ranks.CLI_ARGS)
     for arch, _ in ranks.LOSS_CASES:
         ref["loss", arch] = _repro_loss_and_grads(arch, models[arch], toks["loss_tokens"])
+    for case, arch, _ in ranks.LOSS_VARIANTS:
+        ref["loss", case] = _repro_loss_and_grads(arch, models[arch], toks[f"{case}_tokens"],
+                                                  toks[f"{case}_labels"])
     for arch in ranks.DECODE_ARCHS:
         ref["decode", arch] = _repro_decode(arch, models[arch], toks["prompt"], toks["feed"])
     try:
@@ -240,6 +253,19 @@ def test_one_row_microbatches_on_a_mesh(stack, arch):
     np.testing.assert_allclose([h["lr"] for h in got], [h["lr"] for h in want], rtol=1e-6)
 
 
+def _hold_loss_and_grads(outs, key, ref):
+    """Every rank's loss within 1e-5 relative of repro's, and every element
+    of every gradient within 1e-5."""
+    want_loss, want = ref
+    for o in outs:
+        loss, grads = o[key]
+        assert loss == pytest.approx(want_loss, rel=1e-5)
+        assert sorted(grads) == sorted(want)
+        for k, g in grads.items():
+            assert g.shape == want[k].shape, k
+            np.testing.assert_allclose(g, want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("arch,shape", ranks.LOSS_CASES)
 def test_lm_loss_on_the_mesh_matches_repro(stack, arch, shape):
     """lm_loss and every gradient on a mesh, from repro's weights, against
@@ -251,14 +277,21 @@ def test_lm_loss_on_the_mesh_matches_repro(stack, arch, shape):
     gradients within 1e-5 (float32, the same products summed in another
     order)."""
     outs, ref, _ = stack
-    want_loss, want = ref["loss", arch]
-    for o in outs:
-        loss, grads = o[("loss", arch, shape)]
-        assert loss == pytest.approx(want_loss, rel=1e-5)
-        assert sorted(grads) == sorted(want)
-        for k, g in grads.items():
-            assert g.shape == want[k].shape, k
-            np.testing.assert_allclose(g, want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+    _hold_loss_and_grads(outs, ("loss", arch, shape), ref["loss", arch])
+
+
+@pytest.mark.parametrize("case,arch,shape", ranks.LOSS_VARIANTS)
+def test_lm_loss_variants_on_the_mesh_match_repro(stack, case, arch, shape):
+    """lm_loss and every gradient on a mesh against repro's single-device
+    ``jax.value_and_grad(lm_loss)``, as above: Hymba with its heads whole
+    on ``model`` (the published config's sharding) on 2 rows of 64 tokens,
+    the SSD split by chunks over ``model`` (each rank's chunks, the chunk
+    states all-gathered); and TinyLlama's loss with masked labels and
+    labels in every vocab shard and on their edges, each rank gathering the
+    gold logits of its own shard.  The loss within 1e-5 relative, every
+    gradient within 1e-5."""
+    outs, ref, _ = stack
+    _hold_loss_and_grads(outs, ("loss", case, shape), ref["loss", case])
 
 
 @pytest.mark.parametrize("arch", ranks.DECODE_ARCHS)
