@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--graph hex:256,256,256] [--parts 8] [--seed 0]
                           [--baseline-csrc DIR] [--shard-map-only]
                           [--families-only] [--train-only] [--sharded-only]
+                          [--sharded-arch ARCH] [--mesh-cpu-only]
 
 Run from the root of a checkout.  It exits non-zero on any failure and
 prints no result line when ``torch.cuda.is_available()`` is false.  In
@@ -161,7 +162,15 @@ order it:
    22 layers (a run that fails at step 3 resumes from its step-2
    checkpoint and must end with the uninterrupted run's loss); every loss
    and ``grad_norm`` finite and the last loss below the first;
-   ``--train-only`` runs this phase alone; then ``[sharded]``, the sharded
+   ``--train-only`` runs this phase alone; beside it, ``[mesh-cpu]``: one
+   gloo group of 4 spawned CPU ranks as a ``(2, 2)`` ``("data", "model")``
+   mesh, under the card machine's torch, training Mamba-2's SMOKE config
+   (tied embeddings) and Hymba's at d_model 80 (5 q heads and 1 kv head,
+   which do not split over ``model``: attention by query blocks) for 3
+   steps through ``train_loop(mesh=...)``, then on one device in the same
+   process: every loss and ``grad_norm`` finite and equal on every rank,
+   every loss within 1e-5 of the one-device run's, the last below the
+   first (``--mesh-cpu-only`` runs it alone); then ``[sharded]``, the sharded
    model stack on a ``DeviceMesh`` of one rank a card (one card: a group of
    one in this process, a ``(1, 1)`` ``("data", "model")`` mesh; four
    cards: one spawned process a card, ``(2, 2)``): Qwen3-30B-A3B at full
@@ -178,7 +187,9 @@ order it:
    ``(1, 2)``, on one card with no mesh: the parameters bit-equal to the
    saved ones, the step train_loop resumes at 2); every loss and ``grad_norm``
    finite, every rank the
-   same loss; ``--sharded-only`` runs this phase alone; both phases print
+   same loss; ``--sharded-only`` runs this phase alone, ``--sharded-arch``
+   trains another config there (``hymba_1_5b``: on four cards its 25
+   attention heads do not split over ``model``); both phases print
    ``[roofline]`` lines: the roofline analysis of their step
    (``repro_torch/roofline/analysis.py`` on meta tensors, in a process of
    its own started with the phase; ``[sharded]``'s as rank 0 of
@@ -1837,7 +1848,7 @@ ROOFLINE_PEAK_BOUND = 0.10      # |predicted / measured peak - 1| allowed (PERF.
 ROOFLINE_LIMIT_S = 600          # the wait for the analysis' process
 
 
-def roofline_prediction(phase: str, world: int = 1):
+def roofline_prediction(phase: str, world: int = 1, arch: str | None = None):
     """:func:`predict_step` started in a spawned process of its own (the
     fake process group cannot share a process with the phases' real one),
     so that it runs while the phase works on the card: the future of its
@@ -1846,17 +1857,17 @@ def roofline_prediction(phase: str, world: int = 1):
     from concurrent.futures import ProcessPoolExecutor
 
     pool = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
-    future = pool.submit(predict_step, phase, world)
+    future = pool.submit(predict_step, phase, world, arch)
     pool.shutdown(wait=False)
     return future
 
 
-def predict_step(phase: str, world: int) -> dict:
+def predict_step(phase: str, world: int, arch: str | None = None) -> dict:
     """The roofline analysis (``repro_torch/roofline/analysis.py``) of the
     step that ``phase`` runs, built as that phase builds it, on meta
     tensors: ``[train]``'s ("train") on one card with no mesh,
-    ``[sharded]``'s ("sharded") as rank 0 of its ``world``-rank mesh on a
-    fake process group."""
+    ``[sharded]``'s ("sharded", of ``arch``, ``SHARDED_ARCH`` by default) as
+    rank 0 of its ``world``-rank mesh on a fake process group."""
     import dataclasses
 
     import torch
@@ -1889,7 +1900,8 @@ def predict_step(phase: str, world: int) -> dict:
         shape = sharded_shape(world)
         with fake_process_group(world):
             mesh = fake_mesh(shape, ("data", "model"))
-            cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=SHARDED_LAYERS * world,
+            cfg = dataclasses.replace(get_config(arch or SHARDED_ARCH),
+                                      n_layers=SHARDED_LAYERS * world,
                                       moe_impl="shard_map")
             fn = make_train_step(cfg, OptimizerConfig(total_steps=SHARDED_STEPS),
                                  microbatches=SHARDED_MICROBATCHES)
@@ -2190,10 +2202,12 @@ def profile_step(fn) -> dict:
             "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top]}
 
 
-def sharded_job(rank: int, world: int, seed: int, tmp: str) -> dict:
+def sharded_job(rank: int, world: int, seed: int, tmp: str,
+                train_arch: str = SHARDED_ARCH) -> dict:
     """One rank's share of ``[sharded]``, on the mesh of all ``world`` ranks:
-    ``train_loop(mesh=...)`` at full width, a profiled step, the float32
-    parity of the two MoE engines, the elastic drill.  Returns numbers."""
+    ``train_loop(mesh=...)`` of ``train_arch`` at full width, a profiled
+    step, the float32 parity of the two MoE engines, the elastic drill (of
+    ``train_arch``).  Returns numbers."""
     import dataclasses
 
     import torch
@@ -2225,7 +2239,7 @@ def sharded_job(rank: int, world: int, seed: int, tmp: str) -> dict:
     out: dict = {"rank": rank, "mesh": shape}
 
     # train_loop on the mesh: the run a user starts.
-    cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=SHARDED_LAYERS * world,
+    cfg = dataclasses.replace(get_config(train_arch), n_layers=SHARDED_LAYERS * world,
                               moe_impl="shard_map")
     b, l, mb = 2 * dp, SHARDED_SEQ, SHARDED_MICROBATCHES
     kw = dict(global_batch=b, seq_len=l, microbatches=mb, seed=seed, device=device,
@@ -2324,7 +2338,7 @@ def sharded_job(rank: int, world: int, seed: int, tmp: str) -> dict:
     # mesh) through train_loop, which restores the parameters, m and v there
     # and runs one more step.
     layers, dl, saved_at = SHARDED_DRILL
-    dcfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=layers, moe_impl="shard_map")
+    dcfg = dataclasses.replace(get_config(train_arch), n_layers=layers, moe_impl="shard_map")
     ckpt_dir = os.path.join(tmp, "drill")
     dkw = dict(global_batch=2 * dp, seq_len=dl, seed=seed, device=device, log_every=10**9,
                ckpt_dir=ckpt_dir, ckpt_every=10**9)
@@ -2374,7 +2388,7 @@ def sharded_job(rank: int, world: int, seed: int, tmp: str) -> dict:
     return out
 
 
-def sharded_rank(rank, world, rendezvous, results, seed, tmp) -> None:
+def sharded_rank(rank, world, rendezvous, results, seed, tmp, train_arch) -> None:
     """A spawned rank of ``[sharded]``: joins the NCCL group on its card,
     runs :func:`sharded_job` and sends its numbers back."""
     import torch
@@ -2387,7 +2401,7 @@ def sharded_rank(rank, world, rendezvous, results, seed, tmp) -> None:
         dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=rank,
                                 world_size=world, device_id=torch.device("cuda", rank))
         try:
-            out = sharded_job(rank, world, seed, tmp)
+            out = sharded_job(rank, world, seed, tmp, train_arch)
         finally:
             dist.destroy_process_group()
         results.put((rank, "ok", out))
@@ -2397,15 +2411,16 @@ def sharded_rank(rank, world, rendezvous, results, seed, tmp) -> None:
         results.put((rank, "error", traceback.format_exc()))
 
 
-def sharded_phase(seed, ledger) -> None:
+def sharded_phase(seed, ledger, arch: str = SHARDED_ARCH) -> None:
     """``[sharded]``: the sharded model stack on a ``DeviceMesh`` of one rank
     a card (a group of one in this process on one card, ``(1, 1)``; one
-    spawned process a card on four, ``(2, 2)``): Qwen3-30B-A3B at full
-    width (``moe_impl="shard_map"``, experts on ``model``), 2 layers a rank,
-    through ``train_loop(mesh=...)``; a profiled step; float32 copies of it
-    and of Grok-1 (``moe_shard="tensor"``) whose ``shard_map`` and ``gspmd``
-    MoE logits agree within 2e-4; the elastic drill.  The path launches no
-    kernel of the port."""
+    spawned process a card on four, ``(2, 2)``): ``arch`` (Qwen3-30B-A3B
+    by default, ``moe_impl="shard_map"``, experts on ``model``) at full
+    width, 2 layers a rank, through ``train_loop(mesh=...)``; a profiled
+    step; float32 copies of Qwen3-30B-A3B and of Grok-1
+    (``moe_shard="tensor"``) whose ``shard_map`` and ``gspmd`` MoE logits
+    agree within 2e-4; the elastic drill.  The path launches no kernel of
+    the port."""
     import tempfile
 
     import torch
@@ -2415,7 +2430,7 @@ def sharded_phase(seed, ledger) -> None:
     t_phase = time.perf_counter()
     ident = card_identity()
     world = sharded_world()
-    prediction = roofline_prediction("sharded", world)
+    prediction = roofline_prediction("sharded", world, arch)
     ledger.start()
     with tempfile.TemporaryDirectory() as tmp:
         rendezvous = os.path.join(tmp, "rendezvous")
@@ -2423,14 +2438,14 @@ def sharded_phase(seed, ledger) -> None:
             dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
                                     world_size=1, device_id=torch.device("cuda", 0))
             try:
-                outs = [sharded_job(0, 1, seed, tmp)]
+                outs = [sharded_job(0, 1, seed, tmp, arch)]
             finally:
                 dist.destroy_process_group()
         else:
             ctx = mp.get_context("spawn")
             results = ctx.Queue()
             procs = [ctx.Process(target=sharded_rank,
-                                 args=(r, world, rendezvous, results, seed, tmp))
+                                 args=(r, world, rendezvous, results, seed, tmp, arch))
                      for r in range(world)]
             for p in procs:
                 p.start()
@@ -2455,8 +2470,9 @@ def sharded_phase(seed, ledger) -> None:
     name, n_layers, d, e, f, vocab, dtype, remat = o["cfg"]
     b, l = 2 * o["mesh"][0], SHARDED_SEQ
     log(f"[sharded] {name} on a {o['mesh']} ('data', 'model') mesh of {world} card(s): "
-        f"{n_layers} layers ({SHARDED_LAYERS} a rank), d {d}, {e} experts of d_ff {f}, "
-        f"vocab {vocab}, {dtype}, remat {remat!r}, moe_impl 'shard_map': {o['n_params']} "
+        f"{n_layers} layers ({SHARDED_LAYERS} a rank), d {d}, "
+        f"{f'{e} experts of d_ff {f}' if e else f'd_ff {f}'}, vocab {vocab}, {dtype}, "
+        f"remat {remat!r}{', moe_impl shard_map' if e else ''}: {o['n_params']} "
         f"parameters; {b} x {l} tokens a step in {SHARDED_MICROBATCHES} microbatches; {ident}")
     for h0 in o["hist"]:
         losses = {(round(x["hist"][h0["step"]]["loss"], 6)) for x in outs}
@@ -2544,6 +2560,149 @@ def sharded_phase(seed, ledger) -> None:
         f"{dr['want_loss']!r} from the restored parameters (relative difference "
         f"{rel:.3g}, limit {SHARDED_DRILL_TOL}), grad_norm {h['grad_norm']:.6f}")
     log(f"[sharded] the phase took {time.perf_counter() - t_phase:.1f} s; {ident}")
+
+
+MESH_CPU_CASES = (              # [mesh-cpu]: (SMOKE arch, fields changed)
+    ("mamba2_780m", {}),        # tied embeddings: two gradients of one table summed
+    # 5 q heads, 1 kv head, that do not split over model: attention by query
+    # blocks (the heads whole on model, as the published Hymba keeps them).
+    ("hymba_1_5b", dict(d_model=80, n_heads=5, n_kv_heads=1, shard_attn_heads=False,
+                        shard_ssm_heads=False)),
+)
+MESH_CPU_TRAIN = dict(global_batch=4, seq_len=64)
+MESH_CPU_STEPS = 3
+MESH_CPU_TOL = 1e-5             # a mesh step's loss against one device's, relative
+MESH_CPU_LIMIT_S = 600          # the parent's wait for the group
+
+
+def mesh_cpu_job(seed: int) -> dict:
+    """One rank's share of ``[mesh-cpu]`` on the ``(2, 2)`` CPU mesh of the
+    default (gloo) group: each case's ``train_loop(mesh=...)``, then the same
+    run on one device in this process.  Returns each run's (loss,
+    grad_norm) by step and seconds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for arch, fields in MESH_CPU_CASES:
+        cfg = dataclasses.replace(get_smoke(arch), **fields)
+        runs = {}
+        for name, on in (("mesh", mesh), ("one", None)):
+            t0 = time.perf_counter()
+            _, hist = train_loop(cfg, steps=MESH_CPU_STEPS, mesh=on, seed=seed,
+                                 log_every=10**9, device="cpu", **MESH_CPU_TRAIN)
+            runs[name] = [(h["loss"], h["grad_norm"]) for h in hist]
+            runs[f"{name}_s"] = time.perf_counter() - t0
+        out[arch] = runs
+    return out
+
+
+def mesh_cpu_rank(rank, world, rendezvous, results, seed) -> None:
+    """A spawned rank of ``[mesh-cpu]``: joins the gloo group, runs
+    :func:`mesh_cpu_job` and sends its numbers back."""
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                                world_size=world)
+        try:
+            out = mesh_cpu_job(seed)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:
+        import traceback
+
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def mesh_cpu_start(seed):
+    """Start ``[mesh-cpu]``: one gloo group of 4 spawned CPU ranks, a
+    ``(2, 2)`` ``("data", "model")`` mesh, training each of
+    ``MESH_CPU_CASES``' SMOKE configs through ``train_loop(mesh=...)`` and
+    on one device, under the card machine's torch.  The ranks use one CPU
+    core each and no card, so they run beside a phase on the card.
+    Returns the handle :func:`mesh_cpu_finish` takes."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.TemporaryDirectory()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=mesh_cpu_rank, daemon=True,
+                         args=(r, 4, os.path.join(tmp.name, "rendezvous"), results, seed))
+             for r in range(4)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    return t0, tmp, results, procs
+
+
+def mesh_cpu_stop(handle) -> None:
+    """End :func:`mesh_cpu_start`'s ranks that still run, and remove their
+    directory."""
+    _, tmp, _, procs = handle
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    tmp.cleanup()
+
+
+def mesh_cpu_finish(handle) -> None:
+    """Wait for :func:`mesh_cpu_start`'s group and hold it: every loss and
+    ``grad_norm`` finite and equal on every rank, every loss within
+    ``MESH_CPU_TOL`` of the same rank's one-device run, the last loss below
+    the first.  Raises on any failure."""
+    import torch
+
+    t0, tmp, results, procs = handle
+    try:
+        got = {}
+        for _ in procs:
+            rank, status, payload = results.get(timeout=MESH_CPU_LIMIT_S)
+            if status != "ok":
+                raise AssertionError(f"[mesh-cpu] rank {rank} failed:\n{payload}")
+            got[rank] = payload
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        mesh_cpu_stop(handle)
+    wall = time.perf_counter() - t0
+    outs = [got[r] for r in range(len(procs))]
+    for arch, fields in MESH_CPU_CASES:
+        runs = [o[arch] for o in outs]
+        mesh = runs[0]["mesh"]
+        for r, run in enumerate(runs):
+            if run["mesh"] != mesh:
+                raise AssertionError(f"[mesh-cpu] {arch}: rank {r}'s losses {run['mesh']} "
+                                     f"differ from rank 0's {mesh}")
+            for (loss, norm), (want, _) in zip(run["mesh"], run["one"], strict=True):
+                if not (np.isfinite(loss) and np.isfinite(norm)
+                        and abs(loss - want) <= MESH_CPU_TOL * abs(want)):
+                    raise AssertionError(f"[mesh-cpu] {arch} rank {r}: mesh {run['mesh']} "
+                                         f"against one device {run['one']}")
+        if not mesh[-1][0] < mesh[0][0]:
+            raise AssertionError(f"[mesh-cpu] {arch}: the loss does not fall: {mesh}")
+        err = max(abs(a[0] - b[0]) / abs(b[0]) for run in runs
+                  for a, b in zip(run["mesh"], run["one"]))
+        log(f"[mesh-cpu] {arch} SMOKE{' ' + str(fields) if fields else ''}, "
+            f"{MESH_CPU_TRAIN['global_batch']} x {MESH_CPU_TRAIN['seq_len']} tokens a step: "
+            f"losses {[round(x[0], 6) for x in mesh]} (grad_norm "
+            f"{[round(x[1], 6) for x in mesh]}) on every rank of the (2, 2) gloo mesh, "
+            f"within {err:.3g} of one device in the same process (limit {MESH_CPU_TOL}); "
+            f"mesh {max(x['mesh_s'] for x in runs):.1f} s, one device "
+            f"{max(x['one_s'] for x in runs):.1f} s (slowest rank)")
+    log(f"[mesh-cpu] 4 gloo ranks on the card machine's CPU, torch {torch.__version__}: "
+        f"{wall:.1f} s from the spawn to the last result")
 
 
 PLAN_RUNS = 4                   # [plans]: runs of one cached plan
@@ -3473,6 +3632,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="run the [sharded] phase alone (no kernel is built: the sharded "
                          "model stack launches none), with no kernels line")
+    ap.add_argument("--mesh-cpu-only", action="store_true",
+                    help="run the [mesh-cpu] leg alone (a gloo group of 4 CPU ranks on a "
+                         "(2, 2) mesh; no kernel is built), with no kernels line")
+    ap.add_argument("--sharded-arch", default=SHARDED_ARCH,
+                    help="the config [sharded] trains at full width, 2 layers a rank "
+                         "(hymba_1_5b: its 25 attention heads do not split over model)")
     ap.add_argument("--shard-map-only", action="store_true",
                     help="build the kernels and run the [shard_map] phase alone (a "
                          "group of one rank per card, up to --parts), with no kernels "
@@ -3513,8 +3678,11 @@ def run(device, args) -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    if args.sharded_only:
-        sharded_phase(args.seed, Launches())
+    if args.sharded_only or args.mesh_cpu_only:
+        if args.mesh_cpu_only:
+            mesh_cpu_finish(mesh_cpu_start(args.seed))
+        else:
+            sharded_phase(args.seed, Launches(), args.sharded_arch)
         log(card_identity())
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3884,9 +4052,15 @@ def run(device, args) -> int:
     log(f"[serve] the serving and flash phases took {time.perf_counter() - t0:.1f} s")
     families_phase(device, args.seed, ledger)
 
-    # -- 5. training, on one card and on a mesh ----------------------------------
-    train_phase(device, args.seed, ledger)
-    sharded_phase(args.seed, ledger)
+    # -- 5. training, on one card and on a mesh; [mesh-cpu] beside [train] --------
+    mesh_cpu = mesh_cpu_start(args.seed)
+    try:
+        train_phase(device, args.seed, ledger)
+    except BaseException:
+        mesh_cpu_stop(mesh_cpu)
+        raise
+    mesh_cpu_finish(mesh_cpu)
+    sharded_phase(args.seed, ledger, args.sharded_arch)
 
     # -- 6. the kernels line ----------------------------------------------------
     for name, entry in entries.items():

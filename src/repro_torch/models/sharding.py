@@ -40,8 +40,8 @@ _ctx = threading.local()
 __all__ = ["P", "ActivationPolicy", "set_policy", "get_policy", "use_policy",
            "shard_activation", "make_activation_policy", "param_spec",
            "params_sharding_tree", "placements", "distribute_params", "shard_params",
-           "batch_split", "replicated", "keep_grad_split", "even_split", "split_columns",
-           "split_heads",
+           "batch_split", "replicated", "grad_placed_like", "keep_grad_split", "even_split",
+           "split_columns", "split_heads",
            "on_local_heads",
            "batch_axes", "batch_placements",
            "cache_sharding_tree", "zeros_placed"]
@@ -212,6 +212,17 @@ class _GradLikeValue(torch.autograd.Function):
         return g.redistribute(ctx.mesh, ctx.place)
 
 
+def grad_placed_like(t):
+    """``t``; where it is a DTensor, its gradient is brought to ``t``'s
+    placements on the way back.  A tensor used twice (tied embeddings: the
+    token gather and the LM head) takes it at each use, so that autograd
+    sums two gradients placed alike: torch 2.11's DTensor cannot bring one
+    use's split gradient to the other's partial sum."""
+    from torch.distributed.tensor import DTensor
+
+    return _GradLikeValue.apply(t) if isinstance(t, DTensor) else t
+
+
 def keep_grad_split(t, dim: int):
     """``t``; where it is a DTensor split on dim ``dim``, its gradient is
     brought back to ``t``'s placements on the way back.  Without it the
@@ -224,7 +235,7 @@ def keep_grad_split(t, dim: int):
 
     if not isinstance(t, DTensor) or Shard(dim) not in t.placements:
         return t
-    return _GradLikeValue.apply(t)
+    return grad_placed_like(t)
 
 
 def even_split(t, dim: int, n: int):
@@ -269,58 +280,84 @@ def split_heads(t, n: int):
     return even_split(t, 2, n).reshape(b, l, n, -1)
 
 
-def on_local_heads(fn, q, k, v, *args, **kwargs):
-    """``fn(q, k, v, *args, **kwargs)`` -> (B, Lq, Hq, dh), an attention over
-    (B, L, H, dh) operands, run where each rank holds its heads, as
-    ``repro``'s partitioner keeps the heads on ``model``.
+def on_local_heads(fn, q, k, v, q_pos, k_pos, **kwargs):
+    """``fn(q, k, v, q_pos, k_pos, **kwargs)`` -> (B, Lq, Hq, dh), an
+    attention over (B, L, H, dh) operands with the positions ``q_pos`` (Lq,)
+    and ``k_pos`` (Lk,) of their rows, run on each rank's share.
 
     Plain tensors: ``fn`` itself.  DTensors: each rank runs ``fn`` on plain
-    local shards, the batch split as ``q``'s (:func:`batch_split`) and the
-    q heads split on ``model``; k and v split alike where their heads
-    divide, else whole on ``model`` and cut to the one kv head that the
-    rank's q heads share (their gradient a partial sum over ``model``).
-    The result is a DTensor split the same way.  Where the heads do not
-    split so (no ``model`` axis, q heads not divisible, a rank's q heads
-    across two kv groups, the batch already on ``model``), every rank
-    runs ``fn`` on DTensors with only the batch split, every head
-    gathered."""
+    local tensors, the batch split as ``q``'s (:func:`batch_split`), and
+    what else each holds depends on the ``model`` axis (``ntp`` ranks):
+
+    * nothing more where there is no ``model`` axis or ``ntp`` is 1;
+    * by heads, where the q heads divide ``ntp`` and each rank's q heads
+      lie in one kv group, as ``repro``'s partitioner keeps the heads on
+      ``model``: the q heads split on ``model``; k and v split alike where
+      their heads divide, else whole on ``model`` and cut to the one kv head
+      that the rank's q heads share (their gradient a partial sum over
+      ``model``).  The result is split by heads.
+    * by query blocks, where the heads do not split so (q heads not
+      divisible, or a rank's q heads across two kv groups) and ``ntp``
+      divides Lq: each rank its contiguous block of Lq / ``ntp`` query rows
+      and their positions, every head; k, v and ``k_pos`` whole on
+      ``model`` (k's and v's gradient a partial sum over ``model``), so
+      causal and sliding-window masks stay exact.  A ``q_chunk`` keyword
+      (the chunked form's) is cut to divide the block.  The result is split
+      on the sequence over ``model``, as ``repro``'s residual is.  Equal
+      blocks leave the later ones more unmasked scores under a causal mask.
+
+    Where none applies (the batch already split on ``model``; heads that do
+    not split and ``ntp`` not dividing Lq, as some prefill and decode
+    lengths), every rank runs ``fn`` on DTensors with only the batch split,
+    every head and row gathered: each ``model`` rank repeats the work."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not isinstance(q, DTensor):
-        return fn(q, k, v, *args, **kwargs)
+        return fn(q, k, v, q_pos, k_pos, **kwargs)
     mesh = q.device_mesh
     names = axis_names(mesh)
     base = batch_placements(q)
-    hq, hkv = q.shape[2], k.shape[2]
+    b, lq, hq, _ = q.shape
+    hkv = k.shape[2]
     m = names.index("model") if "model" in names else None
     ntp = 1 if m is None else mesh.size(m)
     hl = hq // ntp
     group = hq // hkv
-    if (ntp == 1 or base[m] != Replicate() or hq % ntp
-            or not (hkv % ntp == 0 or group % hl == 0)):
+    by_heads = hq % ntp == 0 and (hkv % ntp == 0 or group % hl == 0)
+    if ntp > 1 and (base[m] != Replicate() or not by_heads and lq % ntp):
         q, k, v = batch_split(q), batch_split(k), batch_split(v)
-        return batch_split(fn(q, k, v, *args, **kwargs))
+        return batch_split(fn(q, k, v, q_pos, k_pos, **kwargs))
 
-    heads = list(base)
-    heads[m] = Shard(2)
+    split, shared = list(base), list(base)
+    if ntp > 1:
+        split[m] = Shard(2) if by_heads else Shard(1)
+        # k and v whole on model: each rank's gradient is a part of the whole.
+        shared[m] = Partial()
 
-    def local(t):
+    def local(t, place, grad):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        if hkv % ntp == 0:
-            return t.redistribute(mesh, heads).to_local(grad_placements=heads)
-        # The rank's q heads share one kv head: the whole k (v) on model,
-        # cut to it; each rank's gradient is a part of the whole one.
-        grads = list(base)
-        grads[m] = Partial()
-        lo = mesh.get_local_rank(m) * hl // group
-        return t.redistribute(mesh, base).to_local(grad_placements=grads)[:, :, lo:lo + 1]
+        return t.redistribute(mesh, place).to_local(grad_placements=grad)
 
-    o = fn(q.redistribute(mesh, heads).to_local(grad_placements=heads), local(k), local(v),
-           *args, **kwargs).contiguous()
-    shape = (q.shape[0], q.shape[1], hq, o.shape[3])
+    def kv(t):
+        if not by_heads:
+            return local(t, base, shared)
+        if hkv % ntp == 0:
+            return local(t, split, split)
+        # The rank's q heads share one kv head: the whole k (v), cut to it.
+        lo = mesh.get_local_rank(m) * hl // group
+        return local(t, base, shared)[:, :, lo:lo + 1]
+
+    if not by_heads:
+        rows = lq // ntp
+        lo = mesh.get_local_rank(m) * rows
+        q_pos = q_pos[lo:lo + rows]
+        if "q_chunk" in kwargs and lq % min(kwargs["q_chunk"], lq) == 0:
+            kwargs["q_chunk"] = math.gcd(min(kwargs["q_chunk"], lq), rows)
+    o = fn(local(q, split, split), kv(k), kv(v), q_pos, k_pos, **kwargs).contiguous()
+    shape = (b, lq, hq, o.shape[3])
     stride = (shape[1] * shape[2] * shape[3], shape[2] * shape[3], shape[3], 1)
-    return DTensor.from_local(o, mesh, heads, run_check=False, shape=shape, stride=stride)
+    return DTensor.from_local(o, mesh, split, run_check=False, shape=shape, stride=stride)
 
 
 def placements(spec: P, mesh) -> list:

@@ -123,7 +123,10 @@ def _ssd_chunks(xs, bs, cs, dt, dta, q: int, hd: int):
     seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]    # (B,nc,Q,Q,H) log decay i>=j
     li = torch.arange(q, device=xs.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
-    decay = torch.where(causal, torch.exp(seg), 0.0)         # (B,nc,Q,Q,H)
+    # Masked before the exp, so the same decays as repro's where(causal,
+    # exp(seg), 0): above the diagonal seg is positive, and at the published
+    # width its exp overflows, whose gradient (0 times inf) is NaN.
+    decay = torch.exp(torch.where(causal, seg, -math.inf))   # (B,nc,Q,Q,H)
     del seg
     scores = torch.einsum("bcqn,bcsn->bcqs", cc, bc)         # (B,nc,Q,Q)
     w = scores[..., None] * decay * dtc[:, :, None, :, :]    # (B,nc,Q,S,H) fp32

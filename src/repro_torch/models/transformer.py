@@ -74,6 +74,7 @@ from repro_torch.models.sharding import (
     batch_split,
     cache_sharding_tree,
     get_policy,
+    grad_placed_like,
     replicated,
     shard_activation,
     split_heads,
@@ -113,8 +114,14 @@ def _layers(params: Params, cfg: ModelConfig) -> tuple[list[Params], list[Params
             _unbind(params["cross"]) if cfg.n_cross_layers else None)
 
 
+def _embedding(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The embedding table; where the LM head shares it, each use's gradient
+    placed as the table on a mesh (``grad_placed_like``)."""
+    return grad_placed_like(params["embed"]) if cfg.tie_embeddings else params["embed"]
+
+
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return _embedding(params, cfg).T if cfg.tie_embeddings else params["lm_head"]
 
 
 def _groups(cfg: ModelConfig) -> list[range]:
@@ -195,10 +202,24 @@ def _attend(q, k, v, positions, cfg):
                            window=cfg.sliding_window)
 
 
+def _merge_heads(o):
+    """Attention's output (B, L, H, dh) as (B, L, H·dh), the input of its
+    output product.  Where it is split on the sequence (attention by query
+    blocks, ``on_local_heads``), it is gathered there first and the
+    gradient of the result comes back with the batch split alone: torch
+    2.11's DTensor refuses to flatten the product's (B, L) with L split,
+    and cannot unflatten a gradient split on H·dh into heads that do not
+    divide ``model``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(o, DTensor) and Shard(1) in o.placements):
+        return o.reshape(*o.shape[:2], -1)
+    return batch_split(batch_split(o).reshape(*o.shape[:2], -1))
+
+
 def _self_attention(bp, x, cfg, positions):
     q, k, v = qkv_project(bp, x, cfg, positions)
-    o = _attend(q, k, v, positions, cfg)
-    return o.reshape(*x.shape[:2], -1) @ bp["wo"], k, v
+    return _merge_heads(_attend(q, k, v, positions, cfg)) @ bp["wo"], k, v
 
 
 def _ssm_scale(cfg: ModelConfig) -> float:
@@ -322,11 +343,11 @@ def _cross_block(cfg: ModelConfig, x, cp, k, v):
     """Cross-attention layer (VLM): queries from the text, keys and values
     ``k``, ``v`` from the image (``_cross_kv``); no RoPE, no mask."""
     h = rms_norm(x, cp["ln"], cfg.norm_eps)
-    b, l, _ = h.shape
+    l = h.shape[1]
     q = split_heads(h @ cp["attn"]["wq"], cfg.n_heads)
     o = attention_dense(q, k, v, torch.arange(l, device=x.device),
                         torch.arange(k.shape[1], device=x.device), causal=False)
-    return x + o.reshape(b, l, -1) @ cp["attn"]["wo"]
+    return x + _merge_heads(o) @ cp["attn"]["wo"]
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens, frames):
@@ -334,7 +355,7 @@ def _embed(params: Params, cfg: ModelConfig, tokens, frames):
     model's dtype) or the token embedding."""
     if cfg.frontend_dim:
         return frames.to(_dtype(cfg)) @ params["frontend"]
-    return params["embed"][replicated(tokens.long())]
+    return _embedding(params, cfg)[replicated(tokens.long())]
 
 
 def forward(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None):
@@ -615,9 +636,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens, *, img=None, frames=None,
 
     if isinstance(x, DTensor):
         # On a mesh: the cache laid out as a decode step takes it, each rank
-        # allocating its shards.
+        # allocating its shards.  The whole cache's template is shapes only
+        # (fake tensors, as jax.eval_shape's): the roofline analysis counts
+        # every meta tensor it sees as the rank's memory.
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
         mesh = x.device_mesh
-        meta = init_cache(cfg, b, size, device="meta")
+        with FakeTensorMode():
+            meta = init_cache(cfg, b, size, device="meta")
         cache = tree_map(lambda t, s: zeros_placed(t, s, mesh, dev), meta,
                          cache_sharding_tree(meta, cfg, mesh, b))
     else:

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.models.sharding import use_policy
 
@@ -33,13 +34,31 @@ LOSS_TOKENS = (4, 32)
 # More lm_loss cases, (name, arch, mesh): Hymba with its heads whole on model,
 # as the published config keeps them (WHOLE_HEADS), on 2 rows of 64 tokens:
 # the batch does not cover model, so the SSD splits its 4 chunks of 16 over
-# it; and TinyLlama's loss with masked labels (-1) and labels in every vocab
-# shard, on both meshes.
+# it; TinyLlama's loss with masked labels (-1) and labels in every vocab
+# shard, on both meshes; and attention whose heads do not split over model,
+# each rank running its block of query rows (RESHAPED): Hymba at d_model 80
+# (5 q heads, 1 kv head, its sliding window of 16 kept; its heads whole on
+# model, as the published config keeps them), the same through the chunked
+# form on 4 rows of 48 (its q chunk of 16 cut to 8, which divides the
+# rank's 24 rows; the SSD in chunks of 8), and TinyLlama at
+# d_model 96 (6 q heads, 3 kv heads: a rank's 3 q heads cross two kv
+# groups).
 LOSS_VARIANTS = (("whole_heads", "hymba_1_5b", (2, 2)),
                  ("masked_labels", "tinyllama_1_1b", (2, 2)),
-                 ("masked_labels", "tinyllama_1_1b", (1, 4)))
+                 ("masked_labels", "tinyllama_1_1b", (1, 4)),
+                 ("odd_heads", "hymba_1_5b", (2, 2)),
+                 ("odd_heads_chunked", "hymba_1_5b", (2, 2)),
+                 ("crossed_kv", "tinyllama_1_1b", (2, 2)))
 WHOLE_HEADS = dict(shard_ssm_heads=False, shard_attn_heads=False)
 WHOLE_HEADS_TOKENS = (2, 64)
+# The variants whose widths differ from their SMOKE config's: their own
+# weights, in the group's directory under the case's name.
+ODD_HEADS = dict(d_model=80, n_heads=5, n_kv_heads=1, **WHOLE_HEADS)
+RESHAPED = {"odd_heads": ODD_HEADS,
+            "odd_heads_chunked": dict(ODD_HEADS, attn_chunk_threshold=16, attn_q_chunk=16,
+                                      attn_k_chunk=8, ssm_chunk=8),
+            "crossed_kv": dict(d_model=96, n_heads=6, n_kv_heads=3)}
+CHUNKED_TOKENS = (4, 48)        # odd_heads_chunked's tokens
 # prefill and decode_step on the (2, 2) mesh from repro's weights, the KV
 # cache's sequence on model: a prompt of 6 into a cache of 16 (8 positions a
 # rank), then 4 steps whose slots cross from rank 0's half into rank 1's;
@@ -108,20 +127,41 @@ def variant_config(name, arch):
     from repro_torch.configs import get_smoke
 
     cfg = get_smoke(arch)
-    return dataclasses.replace(cfg, **WHOLE_HEADS) if name == "whole_heads" else cfg
+    if name == "whole_heads":
+        return dataclasses.replace(cfg, **WHOLE_HEADS)
+    return dataclasses.replace(cfg, **RESHAPED.get(name, {}))
 
 
-def on_mesh(arch, tmp, mesh, cfg=None):
-    """(SMOKE config (or ``cfg``), ``repro``'s weights for ``arch`` placed on
-    ``mesh`` as ``train_loop(mesh=...)`` places them, the activation
-    policy)."""
+def on_mesh(arch, tmp, mesh, cfg=None, weights=None):
+    """(SMOKE config (or ``cfg``), ``repro``'s weights for ``arch`` (or from
+    the folder ``weights``) placed on ``mesh`` as ``train_loop(mesh=...)``
+    places them, the activation policy)."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.mesh import dp_axes
     from repro_torch.models.sharding import make_activation_policy, shard_params
 
     cfg = cfg or get_smoke(arch)
-    params = shard_params(restore_params(cfg, os.path.join(tmp, arch)), cfg, mesh)
+    params = shard_params(restore_params(cfg, os.path.join(tmp, weights or arch)), cfg, mesh)
     return cfg, params, make_activation_policy(mesh, cfg, dp=dp_axes(mesh))
+
+
+class Shapes(TorchDispatchMode):
+    """The shape of every plain tensor that an operation makes on this rank
+    (DTensor's operations are seen as the local operations they run)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_leaves
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        self.seen.update(tuple(t.shape) for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+        return out
 
 
 def tokens_on(a, mesh):
@@ -140,11 +180,13 @@ def loss_and_grads(arch, tmp, mesh, case=None):
     """lm_loss of ``arch`` on ``repro``'s weights and tokens on ``mesh``, and
     its gradients, whole, by leaf path; ``case`` one of LOSS_VARIANTS'
     names, whose tokens and labels the parent wrote as ``{case}_tokens.npy``
-    and ``{case}_labels.npy``."""
+    and ``{case}_labels.npy``.  A RESHAPED case also returns the shapes that
+    its forward and backward made on this rank."""
     from repro_torch.models import lm_loss
     from repro_torch.train.tree import flatten, placed_like
 
-    cfg, params, policy = on_mesh(arch, tmp, mesh, variant_config(case, arch))
+    cfg, params, policy = on_mesh(arch, tmp, mesh, variant_config(case, arch),
+                                  case if case in RESHAPED else None)
     name = case or "loss"
     toks = tokens_on(np.load(os.path.join(tmp, f"{name}_tokens.npy")), mesh)
     labels = toks if case is None else tokens_on(np.load(os.path.join(tmp, f"{name}_labels.npy")),
@@ -152,10 +194,11 @@ def loss_and_grads(arch, tmp, mesh, case=None):
     flat = flatten(params)
     for t in flat.values():
         t.requires_grad_(True)
-    with use_policy(policy):
+    with use_policy(policy), Shapes() as shapes:
         loss, _ = lm_loss(params, cfg, {"tokens": toks, "labels": labels})
         grads = torch.autograd.grad(loss, list(flat.values()))
-    return float(whole(loss)), {k: whole(placed_like(g, flat[k])) for k, g in zip(flat, grads)}
+    out = (float(whole(loss)), {k: whole(placed_like(g, flat[k])) for k, g in zip(flat, grads)})
+    return out + (sorted(shapes.seen),) if case in RESHAPED else out
 
 
 def decode_logits(arch, tmp, mesh):

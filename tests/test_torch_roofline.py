@@ -11,7 +11,8 @@ process group of 4 ranks in one subprocess, ``repro``'s through
 forced CPU devices in another (``repro.launch.mesh.make_mesh``'s meshes
 cannot be lowered on jax 0.9, ROADMAP.md §3).  Both subprocesses run at
 once, and both also run Hymba's SMOKE cell with its heads whole on
-``model``, as the published config keeps them.
+``model``, as the published config keeps them, and at d_model 80, whose 5
+attention heads do not split over ``model``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,11 @@ import repro_torch.roofline.analysis as troof
 
 MESHES = ("1x1", "2x2")
 SUBPROCESS_LIMIT_S = 300
+# Hymba SMOKE's variant whose 5 q heads (1 kv head) do not split over model,
+# its heads whole there as the published config keeps them.
+ODD_HEADS = dict(d_model=80, n_heads=5, n_kv_heads=1, shard_attn_heads=False,
+                 shard_ssm_heads=False)
+MINI = (8, 64)                  # the mini cell's global batch x sequence
 
 PORT_SIDE = r"""
 import dataclasses, json, sys
@@ -74,14 +80,18 @@ with fake_process_group(4):
     # attention heads nor its SSD heads on model (25 and 50 do not split over 16).
     whole = dataclasses.replace(configs.get_smoke("hymba_1_5b"), shard_ssm_heads=False,
                                 shard_attn_heads=False)
-    out["whole_heads"] = {}
+    # Hymba's SMOKE config at d_model 80: 5 q heads and 1 kv head, which do
+    # not split over model (attention by query blocks), the SSD by chunks.
+    odd = dataclasses.replace(configs.get_smoke("hymba_1_5b"), **ODD_HEADS)
+    out["whole_heads"], out["odd_heads"] = {}, {}
     for shape in ((1, 1), (2, 2)):
         rec = dryrun.run_cell("tinyllama_1_1b", "train_4k", ShapeMesh(("data", "model"), shape),
                               cfg=cfg, verbose=False)
         out["cells"]["x".join(map(str, shape))] = rec
-        rec = dryrun.run_cell("hymba_1_5b", "train_4k", ShapeMesh(("data", "model"), shape),
-                              cfg=whole, verbose=False)
-        out["whole_heads"]["x".join(map(str, shape))] = rec
+        for name, variant in (("whole_heads", whole), ("odd_heads", odd)):
+            rec = dryrun.run_cell("hymba_1_5b", "train_4k", ShapeMesh(("data", "model"), shape),
+                                  cfg=variant, verbose=False)
+            out[name]["x".join(map(str, shape))] = rec
 
     class Numels(TorchDispatchMode):
         # The element count of every tensor a rank's operation makes.
@@ -97,12 +107,14 @@ with fake_process_group(4):
                              if isinstance(t, torch.Tensor) and not isinstance(t, FakeTensor))
             return got
 
-    # The (2, 2) cell's step once more, every tensor it makes seen.
-    fn, args, sp, policy = specs.step_and_specs("tinyllama_1_1b", "train_4k", mesh, cfg=cfg)
-    args = specs.distribute_args(args, sp, mesh)
-    with use_policy(policy), Numels() as numels:
-        fn(*args)
-    out["numels_2x2"] = sorted(numels.seen)
+    # The (2, 2) cells' steps once more, every tensor they make seen.
+    for key, arch, c in (("numels_2x2", "tinyllama_1_1b", cfg),
+                         ("numels_odd_heads_2x2", "hymba_1_5b", odd)):
+        fn, args, sp, policy = specs.step_and_specs(arch, "train_4k", mesh, cfg=c)
+        args = specs.distribute_args(args, sp, mesh)
+        with use_policy(policy), Numels() as numels:
+            fn(*args)
+        out[key] = sorted(numels.seen)
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
@@ -120,13 +132,15 @@ specs.SHAPES["train_4k"] = configs.ShapeSpec("train_4k", 64, 8, "train")
 cfg = configs.get_smoke("tinyllama_1_1b")
 whole = dataclasses.replace(configs.get_smoke("hymba_1_5b"), shard_ssm_heads=False,
                             shard_attn_heads=False)
+odd = dataclasses.replace(configs.get_smoke("hymba_1_5b"), **ODD_HEADS)
 out = {}
 for shape in ((1, 1), (2, 2)):
     mesh = Mesh(np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape), ("data", "model"))
     rec = dryrun.run_cell("tinyllama_1_1b", "train_4k", mesh, cfg=cfg, verbose=False)
     out["x".join(map(str, shape))] = rec
-    rec = dryrun.run_cell("hymba_1_5b", "train_4k", mesh, cfg=whole, verbose=False)
-    out["whole_heads_" + "x".join(map(str, shape))] = rec
+    for name, variant in (("whole_heads_", whole), ("odd_heads_", odd)):
+        rec = dryrun.run_cell("hymba_1_5b", "train_4k", mesh, cfg=variant, verbose=False)
+        out[name + "x".join(map(str, shape))] = rec
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
@@ -141,8 +155,8 @@ def sides(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [src, *filter(None, [os.environ.get("PYTHONPATH")])]),
         "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
-    procs = {side: subprocess.Popen([sys.executable, "-c", script, str(tmp / f"{side}.json")],
-                                    env=env)
+    procs = {side: subprocess.Popen([sys.executable, "-c", f"ODD_HEADS = {ODD_HEADS!r}\n{script}",
+                                     str(tmp / f"{side}.json")], env=env)
              for side, script in (("port", PORT_SIDE), ("repro", REPRO_SIDE))}
     for side, p in procs.items():
         try:
@@ -296,6 +310,30 @@ def test_whole_heads_cell_splits_the_work_in_four(sides):
     assert got["2x2"]["hlo_flops_per_dev"] * 4 == got["1x1"]["hlo_flops_per_dev"] > 0
     assert (repro["whole_heads_2x2"]["hlo_flops_per_dev"] * 4
             == repro["whole_heads_1x1"]["hlo_flops_per_dev"])
+
+
+def test_odd_heads_cell_splits_the_work_in_four(sides):
+    """Hymba's SMOKE config at d_model 80, whose 5 q heads (1 kv head) do not
+    split over ``model``: on (2, 2) each device does exactly a quarter of
+    the (1, 1) products (tolerance 0: each rank runs the attention of its
+    block of query rows, every head, where every ``model`` rank ran every
+    row of its data shard), as repro's partitioner does."""
+    port, repro = sides
+    got = port["odd_heads"]
+    assert got["2x2"]["hlo_flops_per_dev"] * 4 == got["1x1"]["hlo_flops_per_dev"] > 0
+    assert (repro["odd_heads_2x2"]["hlo_flops_per_dev"] * 4
+            == repro["odd_heads_1x1"]["hlo_flops_per_dev"])
+
+
+def test_odd_heads_cell_makes_no_whole_scores(sides):
+    """No tensor that a rank's operation makes in the odd-head cell's (2, 2)
+    step has the element count of its data shard's whole scores (4 rows x 5
+    heads x 64 x 64); each rank's block of them (4 x 5 x 32 x 64) is made."""
+    port, _ = sides
+    numels = set(port["numels_odd_heads_2x2"])
+    rows, l, heads = MINI[0] // 2, MINI[1], ODD_HEADS["n_heads"]
+    assert rows * heads * l * l not in numels
+    assert rows * heads * (l // 2) * l in numels
 
 
 @pytest.mark.parametrize("mesh", MESHES)

@@ -11,8 +11,9 @@ configs; TinyLlama's ``train_loop`` from ``repro``'s step 0, 4 steps and
 StableLM's elastic drill from ``(2, 2)`` onto ``(1, 2)``; TinyLlama's
 and Qwen3-MoE's ``train_loop`` on a ``(1, 1)`` mesh in microbatches of one
 row; ``lm_loss`` and its gradients of Mamba-2 and Hymba on ``(2, 2)``, of
-TinyLlama on ``(1, 4)``, of Hymba with its heads whole on ``model`` and of
-TinyLlama with masked labels; and TinyLlama's and Mamba-2's prefill and
+TinyLlama on ``(1, 4)``, of Hymba with its heads whole on ``model``, of
+TinyLlama with masked labels and of two variants whose attention heads do
+not split over ``model`` (by query blocks); and TinyLlama's and Mamba-2's prefill and
 decode steps on ``(2, 2)``.  The parent computes ``repro``'s references while the ranks run, and
 a subprocess runs the roofline analysis of one of the group's steps on a
 fake process group of as many ranks.
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -79,10 +81,16 @@ def _repro_train(start, d, compress):
     return first + more
 
 
-def _weights(arch, seed):
-    """repro's parameters of ``arch``'s SMOKE config; an SSM's per-head
-    scalars (zero, one and zero at init) drawn so that they count."""
-    jp = jt.init_params(jcfgs.get_smoke(arch), jax.random.PRNGKey(20 + seed))
+def _repro_cfg(arch, case=None):
+    """repro's SMOKE config of ``arch``, at the widths of the RESHAPED loss
+    case ``case``."""
+    return dataclasses.replace(jcfgs.get_smoke(arch), **ranks.RESHAPED.get(case, {}))
+
+
+def _weights(cfg, seed):
+    """repro's parameters of ``cfg``; an SSM's per-head scalars (zero, one
+    and zero at init) drawn so that they count."""
+    jp = jt.init_params(cfg, jax.random.PRNGKey(20 + seed))
     if "ssm" in jp["blocks"]:
         rng = np.random.default_rng(seed)
         shape = jp["blocks"]["ssm"]["a_log"].shape
@@ -92,10 +100,9 @@ def _weights(arch, seed):
     return jp
 
 
-def _repro_loss_and_grads(arch, jp, toks, labels=None):
-    """repro's lm_loss on one device, ``labels`` (the tokens where None), and
-    its gradients by leaf path."""
-    cfg = jcfgs.get_smoke(arch)
+def _repro_loss_and_grads(cfg, jp, toks, labels=None):
+    """repro's lm_loss of ``cfg`` on one device, ``labels`` (the tokens where
+    None), and its gradients by leaf path."""
     labels = toks if labels is None else labels
     fn = jax.jit(jax.value_and_grad(lambda p, b: jt.lm_loss(p, cfg, b), has_aux=True))
     (loss, _), grads = fn(jp, {"tokens": jnp.asarray(toks, jnp.int32),
@@ -139,9 +146,13 @@ def stack(tmp_path_factory):
         jtrain.train_loop(jcfgs.get_smoke(arch), steps=0, ckpt_dir=str(tmp / f"one_row_{arch}"),
                           **ranks.ONE_ROW)
         shutil.copytree(tmp / f"one_row_{arch}", tmp / f"repro_one_row_{arch}")
-    models = {arch: _weights(arch, i) for i, arch in enumerate(ranks.WEIGHT_ARCHS)}
-    for arch, jp in models.items():
-        jckpt.save(str(tmp / arch), 0, {"params": jp})
+    models = {arch: _weights(jcfgs.get_smoke(arch), i)
+              for i, arch in enumerate(ranks.WEIGHT_ARCHS)}
+    reshaped = [(case, arch) for case, arch, _ in ranks.LOSS_VARIANTS if case in ranks.RESHAPED]
+    models.update({case: _weights(_repro_cfg(arch, case), 10 + i)
+                   for i, (case, arch) in enumerate(reshaped)})
+    for name, jp in models.items():
+        jckpt.save(str(tmp / name), 0, {"params": jp})
     rng = np.random.default_rng(2)
     b = ranks.DECODE["batch"]
     toks = {"loss_tokens": rng.integers(0, 512, ranks.LOSS_TOKENS),
@@ -155,6 +166,9 @@ def stack(tmp_path_factory):
     toks.update({"whole_heads_tokens": whole, "whole_heads_labels": whole,
                  "masked_labels_tokens": rng.integers(0, 512, ranks.LOSS_TOKENS),
                  "masked_labels_labels": masked})
+    for case, _ in reshaped:
+        shape = ranks.CHUNKED_TOKENS if case == "odd_heads_chunked" else ranks.LOSS_TOKENS
+        toks[f"{case}_tokens"] = toks[f"{case}_labels"] = rng.integers(0, 512, shape)
     for name, a in toks.items():
         np.save(tmp / f"{name}.npy", a.astype(np.int32))
     handle = group.start_group(tmp, 4, "stack", str(tmp), module="_sharded_ranks")
@@ -171,10 +185,12 @@ def stack(tmp_path_factory):
             ckpt_dir=str(tmp / f"repro_one_row_{arch}"), ckpt_every=100, **ranks.ONE_ROW)[1]
     ref["cli"] = ttrain.main(ranks.CLI_ARGS)
     for arch, _ in ranks.LOSS_CASES:
-        ref["loss", arch] = _repro_loss_and_grads(arch, models[arch], toks["loss_tokens"])
+        ref["loss", arch] = _repro_loss_and_grads(jcfgs.get_smoke(arch), models[arch],
+                                                  toks["loss_tokens"])
     for case, arch, _ in ranks.LOSS_VARIANTS:
-        ref["loss", case] = _repro_loss_and_grads(arch, models[arch], toks[f"{case}_tokens"],
-                                                  toks[f"{case}_labels"])
+        ref["loss", case] = _repro_loss_and_grads(
+            _repro_cfg(arch, case), models[case if case in ranks.RESHAPED else arch],
+            toks[f"{case}_tokens"], toks[f"{case}_labels"])
     for arch in ranks.DECODE_ARCHS:
         ref["decode", arch] = _repro_decode(arch, models[arch], toks["prompt"], toks["feed"])
     try:
@@ -258,7 +274,7 @@ def _hold_loss_and_grads(outs, key, ref):
     of every gradient within 1e-5."""
     want_loss, want = ref
     for o in outs:
-        loss, grads = o[key]
+        loss, grads = o[key][:2]
         assert loss == pytest.approx(want_loss, rel=1e-5)
         assert sorted(grads) == sorted(want)
         for k, g in grads.items():
@@ -288,10 +304,29 @@ def test_lm_loss_variants_on_the_mesh_match_repro(stack, case, arch, shape):
     the SSD split by chunks over ``model`` (each rank's chunks, the chunk
     states all-gathered); and TinyLlama's loss with masked labels and
     labels in every vocab shard and on their edges, each rank gathering the
-    gold logits of its own shard.  The loss within 1e-5 relative, every
-    gradient within 1e-5."""
+    gold logits of its own shard; attention whose heads do not split over
+    ``model`` (Hymba's 5 q heads, dense and chunked; TinyLlama's 6 q heads
+    whose ranks' thirds cross two kv groups), each rank running its block
+    of query rows with every head, k and v whole, Hymba's sliding window on
+    the rows' positions.  The loss within 1e-5 relative, every gradient within
+    1e-5."""
     outs, ref, _ = stack
     _hold_loss_and_grads(outs, ("loss", case, shape), ref["loss", case])
+
+
+@pytest.mark.parametrize("case", ["odd_heads", "crossed_kv"])
+def test_attention_by_query_blocks_makes_no_whole_scores(stack, case):
+    """Where the heads do not split over ``model``, no rank makes a tensor of
+    its data shard's whole scores, forward or backward (rows x heads x L x
+    L elements, ending in (L, L): every ``model`` rank computed every row of
+    its data shard before), and each makes its block's (L / 2 query rows)."""
+    outs, _, _ = stack
+    (rows, l), heads = ranks.LOSS_TOKENS, ranks.RESHAPED[case]["n_heads"]
+    rows //= ranks.MESH[0]
+    for o in outs:
+        made = {(tuple(s[-2:]), math.prod(s)) for s in o[("loss", case, ranks.MESH)][2]}
+        assert ((l, l), rows * heads * l * l) not in made
+        assert ((l // 2, l), rows * heads * l // 2 * l) in made
 
 
 @pytest.mark.parametrize("arch", ranks.DECODE_ARCHS)
